@@ -1,0 +1,101 @@
+"""State carried across from the JAX package's index objects.
+
+Builds the port's `DeviceVectorIndex` and `BM25Index` directly from the
+arrays a JAX-package index holds (given as numpy arrays), without running
+the port's own build: the port then searches exactly the tables the JAX
+package built, which holds search semantics apart from build semantics.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from radiant_rag_tpu_torch.index.bm25 import BM25Index
+from radiant_rag_tpu_torch.index.engine import DeviceVectorIndex
+
+
+def _dev(a: np.ndarray, device: torch.device, dtype=None) -> torch.Tensor:
+    a = np.ascontiguousarray(a if dtype is None else np.asarray(a, dtype))
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def engine_from_jax_state(*, vecs: np.ndarray, i8: np.ndarray, i8_lo: np.ndarray,
+                          i8_hi: np.ndarray, codes: np.ndarray, valid: np.ndarray,
+                          level: np.ndarray, lang: np.ndarray, doc_len: np.ndarray,
+                          count: int, capacity: int, device=None,
+                          **engine_kwargs) -> DeviceVectorIndex:
+    """A DeviceVectorIndex over the JAX engine's full-capacity arrays
+    (`codes` are its uint32 sign words, kept bit for bit as int32)."""
+    dim = int(i8.shape[1])
+    eng = DeviceVectorIndex(dim, initial_capacity=capacity, device=device,
+                            store_fp32=vecs.shape[0] > 0, **engine_kwargs)
+    if eng.capacity != capacity:
+        raise ValueError(f"capacity {capacity} is not a capacity the engine rounds to")
+    d = eng.device
+    eng.vecs = _dev(vecs, d).to(eng.vec_dtype)
+    eng.i8 = _dev(i8, d, np.int8)
+    eng.codes = _dev(np.asarray(codes, np.uint32).view(np.int32), d)
+    eng.valid = _dev(valid, d, bool)
+    eng.level = _dev(level, d, np.int8)
+    eng.lang = _dev(lang, d, np.int32)
+    eng.doc_len = _dev(doc_len, d, np.float32)
+    eng.i8_lo = _dev(i8_lo, d, np.float32)
+    eng.i8_hi = _dev(i8_hi, d, np.float32)
+    eng.count = int(count)
+    eng._calibrated = True
+    return eng
+
+
+def bm25_from_jax_state(*, terms: Sequence[str], df: Sequence[int],
+                        term_start: np.ndarray, term_idf: np.ndarray,
+                        post_rows: np.ndarray, post_tf: np.ndarray,
+                        doc_lens: Dict[int, int], sketch: Optional[np.ndarray] = None,
+                        sketch_scale: Optional[float] = None,
+                        bins_per_term: Optional[np.ndarray] = None,
+                        signs_per_term: Optional[np.ndarray] = None,
+                        dm_tids: Optional[np.ndarray] = None,
+                        dm_tfs: Optional[np.ndarray] = None, device=None,
+                        **index_kwargs) -> BM25Index:
+    """A BM25Index over the JAX index's finalized CSR (`_term_start`,
+    `_term_idf`, the host postings), doc lengths and, when given, its
+    impact sketch with its scale and per-term bins / signs, and its
+    doc-major tables. `index_kwargs` are the JAX index's constructor
+    arguments (sketch_dim, routing thresholds, ...)."""
+    bm = BM25Index(device=device, **index_kwargs)
+    d = bm.device
+    bm.terms = list(terms)
+    bm.vocab = {t: i for i, t in enumerate(bm.terms)}
+    bm.df = [int(x) for x in df]
+    bm.doc_lens = {int(r): int(n) for r, n in doc_lens.items()}
+    bm.total_len = sum(bm.doc_lens.values())
+    total = int(term_start[-1])
+    bm._base_start = np.asarray(term_start, np.int64).copy()
+    bm._base_rows = np.asarray(post_rows, np.int32)[:total].copy()
+    bm._base_tfs = np.asarray(post_tf, np.float32)[:total].copy()
+    bm._term_start = bm._base_start.copy()
+    bm._term_idf = np.asarray(term_idf, np.float32).copy()
+    bm._host_post_rows = np.asarray(post_rows, np.int32).copy()
+    bm._host_post_tf = np.asarray(post_tf, np.float32).copy()
+    bm._dev_post_rows = _dev(bm._host_post_rows, d)
+    bm._dev_post_tf = _dev(bm._host_post_tf, d)
+    bm._csr_dirty = False
+    if sketch is not None:
+        bm.plan_hbm(int(sketch.shape[0]))
+        if bm.sketch_dim != sketch.shape[1]:
+            raise ValueError(f"sketch width {sketch.shape[1]} != planned {bm.sketch_dim}")
+        bm._sketch = _dev(sketch, d, np.int8)
+        bm._sketch_scale = torch.tensor(float(sketch_scale), dtype=torch.float32, device=d)
+        bm._sketch_rows = int(sketch.shape[0])
+        bm._sketch_dirty = False
+        bm._bins_per_term = np.asarray(bins_per_term, np.int32).copy()
+        bm._signs_per_term = np.asarray(signs_per_term, np.int8).copy()
+    if dm_tids is not None:
+        bm._dm_tids = _dev(dm_tids, d, np.int32)
+        bm._dm_tfs = _dev(dm_tfs, d, np.int32)
+        bm._dm_rows = int(dm_tids.shape[0])
+        bm._dm_width = bm.doc_major_width = int(dm_tids.shape[1])
+        bm._dm_dirty = False
+    return bm

@@ -1,0 +1,357 @@
+"""DeviceVectorIndex: the device-resident dense index engine.
+
+Counterpart of `radiant_rag_tpu/index/engine.py`. The corpus lives on the
+device as
+
+  vecs    (cap, D)  f32   L2-normalized embeddings (rescore + exact path)
+  codes   (cap, W)  i32   packed sign bits (the binary stage 1; stored so the
+                          Hamming kernel is all a later slice adds)
+  i8      (cap, D)  int8  calibrated affine codes (int8 stage 1)
+  valid   (cap,)    bool  live-row mask (deletes are a mask)
+  level   (cap,)    int8  doc_level code
+  lang    (cap,)    i32   language code
+  doc_len (cap,)    f32   BM25 token counts (row space shared with BM25Index)
+
+Rows are append-only with capacity growth. Where the JAX package wrote row
+slabs with a donated `dynamic_update_slice`, the port writes the slab in
+place into the preallocated tensors.
+
+Modes: "exact" (fp32 scan) and "int8" (two-stage, stage 1 in the fused CUDA
+scan -> top-k kernel). "binary" and "graph" raise NotImplementedError until
+their ROADMAP items land.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from radiant_rag_tpu_torch import resolve_device, to_device
+from radiant_rag_tpu_torch.ops import quantize as qz
+from radiant_rag_tpu_torch.ops import similarity as sim
+
+logger = logging.getLogger(__name__)
+
+# Capacity rounding: pow2 while small, then multiples of this quantum (pow2
+# all the way would pad a 10M-row reserve to 16.8M rows).
+CAPACITY_QUANTUM = 1 << 16
+
+# Device-memory gate. The JAX package sized these for a 16 GB v5e whose XLA
+# programs materialized a (B, N) stage-1 score buffer per leg; it capped one
+# such transient at 9 GiB (SCORE_BYTES_CAP) and auto-selected a bf16 or
+# chunked selection as capacity grew. On the H100 (80 GB):
+#  - the int8 stage 1 of both legs is the fused scan -> top-k kernel, which
+#    holds no (B, N) buffer, so no select policy trades memory for speed
+#    and the default policy is the fused kernel at every capacity;
+#  - the only (B, N) transients left are the exact path and the BM25 pages
+#    route: an f32 score matrix, its masked copy and the int64 order keys
+#    of `similarity.topk_first`, 24 bytes per cell at the peak;
+#  - usable memory is the card's total (torch.cuda.mem_get_info) less 8 GiB
+#    for the CUDA context, the allocator's slack and the outputs, and the
+#    transient budget is what the resident corpus leaves of it. There is no
+#    separate cap: eager PyTorch frees each transient as it goes.
+# At 1M rows this admits a 2048-query bucket (2048 x 2^20 x 24 B = 51.5 GB).
+SCORE_BYTES_PER_CELL = 24
+HEADROOM_BYTES = 8 << 30
+CPU_USABLE_BYTES = 16 << 30  # test-size runs on the CPU
+
+
+def _next_pow2(n: int, floor: int = 1) -> int:
+    p = floor
+    while p < n:
+        p *= 2
+    return p
+
+
+def _round_capacity(n: int) -> int:
+    if n <= CAPACITY_QUANTUM:
+        return _next_pow2(max(n, 256))
+    return -(-n // CAPACITY_QUANTUM) * CAPACITY_QUANTUM
+
+
+def row_mask(valid: torch.Tensor, level: torch.Tensor, lang: torch.Tensor,
+             level_code: int, lang_code: int) -> torch.Tensor:
+    """Live rows that pass the doc_level / language filters (-1 = none)."""
+    mask = valid
+    if level_code >= 0:
+        mask = mask & (level.to(torch.int32) == level_code)
+    if lang_code >= 0:
+        mask = mask & (lang == lang_code)
+    return mask
+
+
+class DeviceVectorIndex:
+    """Append-only device-resident dense index over one row space."""
+
+    # Query-batch padding buckets: every batch runs at a fixed set of shapes.
+    QUERY_BUCKETS = (1, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+    def __init__(self, dim: int, initial_capacity: int = 4096,
+                 calibration_sample: int = 4096, device=None,
+                 store_fp32: bool = True, vec_dtype: str = "float32",
+                 stage1_select: str = "") -> None:
+        """store_fp32=False keeps no fp32 vectors on the device: the rescore
+        dequantizes int8 candidates, and calibration comes from the first
+        >= 64-row append or set_int8_ranges. stage1_select "blockmax" picks
+        the block-max candidate kernel; every other policy is the fused
+        scan -> top-k kernel (see the memory-gate note above)."""
+        self.device = resolve_device(device)
+        self.dim = dim
+        self.words = qz.packed_words(dim)
+        self.count = 0
+        self.capacity = _round_capacity(max(initial_capacity, 256))
+        self.store_fp32 = store_fp32
+        self.vec_dtype = torch.bfloat16 if vec_dtype == "bfloat16" else torch.float32
+        self.stage1_select = stage1_select or "f32"
+        self._calibrated = False
+        self.calibration_sample = calibration_sample
+        self._alloc(self.capacity)
+        # identity dequant until calibration
+        self.i8_lo = torch.full((dim,), -1.0, dtype=torch.float32, device=self.device)
+        self.i8_hi = torch.full((dim,), 1.0, dtype=torch.float32, device=self.device)
+        if self.device.type == "cuda":
+            self.usable_bytes = torch.cuda.mem_get_info(self.device)[1] - HEADROOM_BYTES
+        else:
+            self.usable_bytes = CPU_USABLE_BYTES
+
+    # -- allocation --------------------------------------------------------
+    def _zeros(self, shape, dtype) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def _alloc(self, cap: int) -> None:
+        self.vecs = self._zeros((cap if self.store_fp32 else 0, self.dim), self.vec_dtype)
+        self.codes = self._zeros((cap, self.words), torch.int32)
+        self.i8 = self._zeros((cap, self.dim), torch.int8)
+        self.valid = self._zeros((cap,), torch.bool)
+        self.level = self._zeros((cap,), torch.int8)
+        self.lang = self._zeros((cap,), torch.int32)
+        self.doc_len = self._zeros((cap,), torch.float32)
+
+    def reserve(self, total_rows: int) -> None:
+        """Grow capacity for `total_rows` rows in one step."""
+        if total_rows > self.capacity:
+            self._grow(total_rows, tight=True)
+
+    def _grow(self, need: int, tight: bool = False) -> None:
+        # tight (a known final size) is exact only when it at least doubles
+        # capacity; otherwise growth is amortized: 2x while small, 1.25x
+        # once capacity is memory-relevant
+        if tight and need >= 2 * self.capacity:
+            new_cap = _round_capacity(need)
+        else:
+            amort = (self.capacity * 2 if self.capacity < (1 << 21)
+                     else self.capacity + self.capacity // 4)
+            new_cap = _round_capacity(max(need, amort))
+        logger.info("growing device index %d -> %d rows", self.capacity, new_cap)
+        pad = new_cap - self.capacity
+
+        def grow(arr: torch.Tensor) -> torch.Tensor:
+            return torch.cat([arr, arr.new_zeros((pad,) + tuple(arr.shape[1:]))])
+
+        if self.store_fp32:
+            self.vecs = grow(self.vecs)
+        self.codes = grow(self.codes)
+        self.i8 = grow(self.i8)
+        self.valid = grow(self.valid)
+        self.level = grow(self.level)
+        self.lang = grow(self.lang)
+        self.doc_len = grow(self.doc_len)
+        self.capacity = new_cap
+
+    # -- writes ------------------------------------------------------------
+    def append(self, vecs: np.ndarray, levels: np.ndarray, langs: np.ndarray,
+               doc_lens: np.ndarray) -> np.ndarray:
+        """Append a batch (vectors should be L2-normalized); returns the
+        assigned rows (host int64)."""
+        p = int(vecs.shape[0])
+        if p == 0:
+            return np.zeros((0,), np.int64)
+        pad_p = _next_pow2(p, floor=64)
+        if self.count + pad_p > self.capacity:
+            self._grow(self.count + pad_p)
+
+        def padded(a: np.ndarray, dtype) -> torch.Tensor:
+            out = np.zeros((pad_p,) + a.shape[1:], dtype)
+            out[:p] = a
+            return torch.from_numpy(out).to(self.device)
+
+        vdev = padded(np.asarray(vecs, np.float32), np.float32)
+        if not self._calibrated and not self.store_fp32 and p >= 64:
+            # fp32-free mode calibrates from its first batch: nothing to
+            # recalibrate from later
+            self.i8_lo, self.i8_hi = qz.calibrate_int8_ranges(vdev[:p])
+            self._calibrated = True
+        sl = slice(self.count, self.count + pad_p)  # in-place slab writes
+        if self.store_fp32:
+            self.vecs[sl] = vdev.to(self.vec_dtype)
+        self.codes[sl] = qz.pack_binary(vdev)
+        self.i8[sl] = qz.quantize_int8(vdev, self.i8_lo, self.i8_hi)
+        vmask = np.zeros((pad_p,), bool)
+        vmask[:p] = True
+        self.valid[sl] = torch.from_numpy(vmask).to(self.device)
+        self.level[sl] = padded(levels, np.int8)
+        self.lang[sl] = padded(langs, np.int32)
+        self.doc_len[sl] = padded(doc_lens, np.float32)
+        rows = np.arange(self.count, self.count + p, dtype=np.int64)
+        self.count += p
+        if not self._calibrated and self.store_fp32 and self.count >= 64:
+            self.recalibrate()
+        return rows
+
+    def invalidate(self, rows: np.ndarray) -> None:
+        if len(rows) == 0:
+            return
+        idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+        self.valid[idx] = False
+
+    def recalibrate(self) -> None:
+        """int8 ranges from the first calibration_sample stored vectors; the
+        whole table is requantized."""
+        if self.count == 0 or not self.store_fp32:
+            return
+        n = min(self.count, self.calibration_sample)
+        self.i8_lo, self.i8_hi = qz.calibrate_int8_ranges(self.vecs[:n].to(torch.float32))
+        self.i8 = qz.quantize_int8(self.vecs.to(torch.float32), self.i8_lo, self.i8_hi)
+        self._calibrated = True
+
+    def set_int8_ranges(self, lo: np.ndarray, hi: np.ndarray) -> None:
+        """Load an external calibration."""
+        self.i8_lo = torch.as_tensor(np.asarray(lo, np.float32), device=self.device)
+        self.i8_hi = torch.as_tensor(np.asarray(hi, np.float32), device=self.device)
+        if self.store_fp32:
+            self.i8 = qz.quantize_int8(self.vecs.to(torch.float32), self.i8_lo, self.i8_hi)
+        self._calibrated = True
+
+    # -- queries -----------------------------------------------------------
+    def resident_bytes(self) -> int:
+        """Device bytes held by the corpus arrays at current capacity."""
+        aux = self.capacity * 10  # valid(1) + level(1) + lang(4) + doc_len(4)
+        return sum(self.memory_bytes().values()) + aux
+
+    def max_query_bucket(self, extra_resident: int = 0, score_gated: bool = False) -> int:
+        """Largest usable query bucket. Only a path that builds a (B, N)
+        score matrix (score_gated: the exact mode, the BM25 pages route) is
+        gated, at SCORE_BYTES_PER_CELL per cell against what residency
+        (plus the caller's extra_resident bytes) leaves free; the fused
+        kernel paths hold no (B, N) buffer."""
+        cap = self.QUERY_BUCKETS[-1]
+        if not score_gated:
+            return cap
+        budget = max(0, self.usable_bytes - self.resident_bytes() - extra_resident)
+        while cap > 1 and cap * self.capacity * SCORE_BYTES_PER_CELL > budget:
+            cap //= 2
+        return cap
+
+    def _bucket_of(self, b: int, max_b: Optional[int] = None) -> int:
+        """Smallest query-padding bucket holding b queries."""
+        max_b = self.max_query_bucket() if max_b is None else max_b
+        if b > max_b:
+            raise ValueError(f"query batch {b} exceeds max bucket {max_b}; split the batch")
+        return next(c for c in self.QUERY_BUCKETS if b <= c)
+
+    def _bucket_queries(self, queries: np.ndarray, max_b: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        b = queries.shape[0]
+        bucket = self._bucket_of(b, max_b)
+        qpad = np.zeros((bucket, self.dim), np.float32)
+        qpad[:b] = queries
+        qvalid = np.zeros((bucket,), bool)
+        qvalid[:b] = True
+        return to_device(qpad, self.device), to_device(qvalid, self.device), b
+
+    def search(self, queries: np.ndarray, k: int, mode: str = "int8",
+               rescore_multiplier: float = 4.0, ef_runtime: Optional[int] = None,
+               level_code: int = -1, lang_code: int = -1
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Returns (scores (B, k) f32, rows (B, k) int64; -1 = no result)."""
+        if mode in ("binary", "graph"):
+            raise NotImplementedError(
+                f"mode={mode!r} is not ported yet: ROADMAP queue B items 3-4 (Hamming "
+                "kernels) and queue A item 10 (graph engine)")
+        if self.count == 0:
+            b = queries.shape[0]
+            return np.full((b, k), -1e30, np.float32), np.full((b, k), -1, np.int64)
+        if mode == "exact" and not self.store_fp32:
+            mode = "int8"  # fp32-free mode has no exact vectors
+        max_b = self.max_query_bucket(score_gated=mode == "exact")
+        if queries.shape[0] > max_b:  # chunk oversized batches
+            parts = [self.search(queries[s:s + max_b], k, mode, rescore_multiplier,
+                                 ef_runtime, level_code, lang_code)
+                     for s in range(0, queries.shape[0], max_b)]
+            return (np.concatenate([p[0] for p in parts]),
+                    np.concatenate([p[1] for p in parts]))
+        k_eff = min(k, self.capacity)
+        kc = int(max(k_eff, round(k_eff * rescore_multiplier)))
+        if ef_runtime:
+            kc = max(kc, int(ef_runtime))
+        kc = min(max(kc, 1), self.capacity)
+        qdev, qvalid, b = self._bucket_queries(np.asarray(queries, np.float32), max_b)
+        mask = row_mask(self.valid, self.level, self.lang, level_code, lang_code)
+        if mode == "exact":
+            top_s, top_i = sim.exact_topk(self.vecs, qdev, mask, k_eff)
+        elif mode == "int8":
+            top_s, top_i = sim.two_stage_topk(
+                self.vecs, qdev, mask, k_eff, kc, "int8", self.i8,
+                *qz.int8_scale_offset(self.i8_lo, self.i8_hi), select=self.stage1_select)
+        else:
+            raise ValueError(f"unknown search mode: {mode}")
+        top_i = torch.where(top_s > sim.NEG_INF / 2, top_i, -1)
+        top_i = torch.where(qvalid[:, None], top_i, -1)
+        scores = top_s[:b].cpu().numpy()
+        rows = top_i[:b].cpu().numpy().astype(np.int64)
+        if k_eff < k:
+            scores = np.pad(scores, ((0, 0), (0, k - k_eff)), constant_values=-1e30)
+            rows = np.pad(rows, ((0, 0), (0, k - k_eff)), constant_values=-1)
+        return scores, rows
+
+    # -- stats / persistence ----------------------------------------------
+    def memory_bytes(self) -> Dict[str, int]:
+        itemsize = 2 if self.vec_dtype == torch.bfloat16 else 4
+        return {
+            "fp32": (self.capacity * self.dim * itemsize) if self.store_fp32 else 0,
+            "binary": self.capacity * self.words * 4,
+            "int8": self.capacity * self.dim,
+        }
+
+    def to_host(self) -> Dict[str, np.ndarray]:
+        """Host copy of the live rows. Vectors are materialized in 512k-row
+        chunks, so the device never holds a full-corpus f32 transient
+        (fp32-free mode reconstructs them from the int8 codes)."""
+        n = self.count
+        step = 1 << 19
+        vecs_out = np.empty((n, self.dim), np.float32)
+        for s in range(0, n, step):
+            e = min(n, s + step)
+            if self.store_fp32:
+                chunk = self.vecs[s:e].to(torch.float32)
+            else:
+                chunk = qz.dequantize_int8(self.i8[s:e], self.i8_lo, self.i8_hi)
+            vecs_out[s:e] = chunk.cpu().numpy()
+        return {
+            "vecs": vecs_out,
+            "valid": self.valid[:n].cpu().numpy(),
+            "level": self.level[:n].cpu().numpy(),
+            "lang": self.lang[:n].cpu().numpy(),
+            "doc_len": self.doc_len[:n].cpu().numpy(),
+            "i8_lo": self.i8_lo.cpu().numpy(),
+            "i8_hi": self.i8_hi.cpu().numpy(),
+        }
+
+    @classmethod
+    def from_host(cls, state: Dict[str, np.ndarray], initial_capacity: int = 4096,
+                  **engine_kwargs) -> "DeviceVectorIndex":
+        vecs = state["vecs"]
+        n, dim = vecs.shape
+        idx = cls(dim, initial_capacity=max(initial_capacity, n), **engine_kwargs)
+        if n:
+            idx.append(vecs, state["level"].astype(np.int8), state["lang"].astype(np.int32),
+                       state["doc_len"].astype(np.float32))
+            if "i8_lo" in state:
+                idx.set_int8_ranges(state["i8_lo"], state["i8_hi"])
+            dead = np.nonzero(~state["valid"])[0]
+            if len(dead):
+                idx.invalidate(dead)
+        return idx

@@ -1,0 +1,44 @@
+"""Shared comparison rules of the PyTorch-port parity tests.
+
+Tolerance (stated once, used by every test_torch_* file): rows and ranks are
+exactly equal; scores match to rtol 1e-5 / atol 1e-6, the room fp32
+summation order needs (the two frameworks sum dot products and BM25 terms
+in different orders). The only row difference allowed is a swap of two
+candidates whose reference scores differ by less than that tolerance, and
+`assert_rows_match` checks exactly that.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+RTOL = 1e-5
+ATOL = 1e-6
+
+
+def assert_rows_match(ref_rows, ref_scores, got_rows, got_scores, what=""):
+    ref_rows = np.asarray(ref_rows)
+    got_rows = np.asarray(got_rows)
+    ref_scores = np.asarray(ref_scores, np.float64)
+    got_scores = np.asarray(got_scores, np.float64)
+    assert ref_rows.shape == got_rows.shape, (what, ref_rows.shape, got_rows.shape)
+    for q in range(ref_rows.shape[0]):
+        r, g = ref_rows[q], got_rows[q]
+        for i in np.nonzero(r != g)[0]:
+            j = np.nonzero(r == g[i])[0]
+            assert len(j) == 1 and g[j[0]] == r[i], (
+                f"{what}: query {q} slot {i}: row {g[i]} is not a swap of {r[i]}", r, g)
+            gap = abs(ref_scores[q, i] - ref_scores[q, j[0]])
+            assert gap <= ATOL + RTOL * abs(ref_scores[q, i]), (
+                f"{what}: query {q} swaps rows {r[i]}, {g[i]} whose scores differ by {gap}")
+    live = ref_rows >= 0
+    np.testing.assert_allclose(got_scores[live], ref_scores[live], rtol=RTOL, atol=ATOL,
+                               err_msg=what)
+
+
+def assert_result_match(ref, got, what=""):
+    """search_rows results: {'dense'|'bm25'|'fused': (scores, rows)}."""
+    assert set(ref) == set(got)
+    for leg in ref:
+        assert_rows_match(ref[leg][1], ref[leg][0], got[leg][1], got[leg][0],
+                          f"{what} {leg}")

@@ -1,0 +1,93 @@
+"""The port's CUDA kernels and main path on the card (skipped without one).
+
+Imports no jax, so it also runs on a machine without the JAX package:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerance: the kernels do integer work and must equal their plain versions
+exactly; the whole path on the card must match the CPU path under
+tests/_torch_parity.py's rule (scores within rtol 1e-5 / atol 1e-6 for the
+fp32 summation order, rows equal up to swaps of candidates tied within it).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from radiant_rag_tpu_torch.ops import cuda_kernels as ck
+
+from _torch_parity import assert_result_match
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(seed, n, d, b, lo, hi, card):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(lo, hi, (n, d), dtype=np.int8)
+    codes[n // 2:n // 2 + 5] = codes[7]  # duplicated rows: tied scores
+    qi = rng.integers(lo, hi, (b, d), dtype=np.int8)
+    mask = np.ones(n, bool)
+    mask[3:40] = False
+    mask[1024:1536] = False  # a fully dead 512-row tile
+    return (torch.from_numpy(codes).to(card), torch.from_numpy(qi).to(card),
+            torch.from_numpy(mask).to(card))
+
+
+@pytest.mark.parametrize("n,d,b,k,lo,hi", [(5000, 384, 33, 40, -127, 128),
+                                           (70_000, 1024, 1, 160, -1, 2),
+                                           (4096, 64, 64, 256, -3, 4)])
+def test_kernels_equal_plain_versions(card, n, d, b, k, lo, hi):
+    codes, qi, mask = _inputs(n + k, n, d, b, lo, hi, card)
+    launches = (ck.int8_scan_topk.launches, ck.blockmax2.launches)
+    for kern, plain, args in ((ck.int8_scan_topk, ck.int8_scan_topk_reference,
+                               (codes, qi, mask, k)),
+                              (ck.blockmax2, ck.blockmax2_reference, (codes, qi, mask))):
+        s, r = kern(*args)
+        torch.cuda.synchronize()
+        ps, pr = plain(*args)
+        assert torch.equal(r, pr) and torch.equal(s, ps)
+    assert (ck.int8_scan_topk.launches, ck.blockmax2.launches) == \
+        (launches[0] + 1, launches[1] + 1)
+
+
+def test_wrapper_rejects_what_the_kernel_cannot_take(card):
+    codes, qi, mask = _inputs(1, 2048, 64, 4, -3, 4, card)
+    with pytest.raises(ValueError):
+        ck.int8_scan_topk(codes, qi, mask, ck.INT8_SCAN_TOPK_MAX_K + 1)
+    with pytest.raises(ValueError):
+        ck.int8_scan_topk(codes[:, :40].contiguous(), qi[:, :40].contiguous(), mask, 10)
+    with pytest.raises(TypeError):
+        ck.blockmax2(codes.float(), qi, mask)
+
+
+@pytest.mark.parametrize("route,select", [("sketch", ""), ("pages", ""),
+                                          ("sketch", "blockmax")])
+def test_hybrid_on_card_equals_cpu_path(card, route, select):
+    from radiant_rag_tpu_torch.index.bm25 import BM25Index
+    from radiant_rag_tpu_torch.index.engine import DeviceVectorIndex
+    from radiant_rag_tpu_torch.index.hybrid import HybridSearcher
+
+    rng = np.random.default_rng(3)
+    n, d = 5000, 64
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    texts = [" ".join(f"w{t}" for t in row) for row in rng.zipf(1.3, (n, 24)) % 3000]
+    q = vecs[:21] + 0.3 * rng.standard_normal((21, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    qt = [" ".join(t.split()[:6]) for t in texts[:21]]
+    out = []
+    for dev in ("cpu", card):
+        eng = DeviceVectorIndex(d, initial_capacity=n, device=dev)
+        eng.append(vecs, np.zeros(n, np.int8), np.zeros(n, np.int32), np.full(n, 24, np.float32))
+        bm = BM25Index(device=dev, sketch_dim=256)
+        bm.bulk_build(list(range(n)), texts)
+        out.append(HybridSearcher(eng, bm).search_rows(q, qt, bm25_mode=route, select=select,
+                                                       fused_depth=40))
+    assert_result_match(out[0], out[1], f"card vs cpu, {route} {select}")

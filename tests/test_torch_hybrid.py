@@ -1,0 +1,180 @@
+"""The whole slice: the port's HybridSearcher.search_rows against the JAX
+package's on the same corpus and queries (CPU).
+
+The corpus is made the way bench.py makes it (clustered vectors, zipfian
+texts), at a small size. Both packages build their own indexes from it,
+except in the convert.py case, where the port searches the JAX package's own
+tables. Tolerance: tests/_torch_parity.py (exact rows and ranks on every
+leg; scores rtol 1e-5 / atol 1e-6).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from radiant_rag_tpu.index.bm25 import BM25Index as JaxBM25
+from radiant_rag_tpu.index.engine import DeviceVectorIndex as JaxEngine
+from radiant_rag_tpu.index.hybrid import HybridSearcher as JaxHybrid
+from radiant_rag_tpu_torch.convert import bm25_from_jax_state, engine_from_jax_state
+from radiant_rag_tpu_torch.index.bm25 import BM25Index
+from radiant_rag_tpu_torch.index.engine import DeviceVectorIndex
+from radiant_rag_tpu_torch.index.hybrid import HybridSearcher
+
+from _torch_parity import assert_result_match
+
+N, D, S = 3000, 64, 256
+
+
+def _corpus(seed=0):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((32, D)).astype(np.float32)
+    vecs = centers[rng.integers(0, 32, N)] + 0.7 * rng.standard_normal((N, D)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    texts = [" ".join(f"w{t}" for t in row) for row in rng.zipf(1.3, (N, 24)) % 2000]
+    levels = rng.integers(0, 2, N).astype(np.int8)
+    langs = rng.integers(0, 3, N).astype(np.int32)
+    lens = np.asarray([len(t.split()) for t in texts], np.float32)
+    return rng, vecs, texts, levels, langs, lens
+
+
+@pytest.fixture(scope="module")
+def world():
+    rng, vecs, texts, levels, langs, lens = _corpus()
+    je = JaxEngine(D, initial_capacity=N)
+    te = DeviceVectorIndex(D, initial_capacity=N, device="cpu")
+    for eng in (je, te):
+        for s in range(0, N, 1024):
+            eng.append(vecs[s:s + 1024], levels[s:s + 1024], langs[s:s + 1024],
+                       lens[s:s + 1024])
+    jb, tb = JaxBM25(sketch_dim=S), BM25Index(sketch_dim=S, device="cpu")
+    jb.bulk_build(list(range(N)), texts)
+    tb.bulk_build(list(range(N)), texts)
+    qidx = rng.integers(0, N, 24)
+    q = vecs[qidx] + 0.25 * rng.standard_normal((24, D)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    qt = [" ".join(texts[i].split()[:6]) for i in qidx]
+    jb._finalize_csr()
+    lengths = np.diff(jb._term_start)
+    rare = [jb.terms[t] for t in np.argsort(lengths, kind="stable")[:16]]
+    rare_qt = [f"{rare[i]} {rare[15 - i]}" for i in range(8)]
+    return {"j": JaxHybrid(je, jb), "t": HybridSearcher(te, tb), "q": q, "qt": qt,
+            "rare_qt": rare_qt, "texts": texts}
+
+
+def _both(world, q, qt, **kw):
+    return (world["j"].search_rows(q, qt, **kw), world["t"].search_rows(q, qt, **kw))
+
+
+@pytest.mark.parametrize("fused_depth", [0, 40])
+@pytest.mark.parametrize("bm25_mode", ["sketch", "pages"])
+def test_search_rows_matches_jax(world, bm25_mode, fused_depth):
+    ref, got = _both(world, world["q"], world["qt"], mode="int8", bm25_mode=bm25_mode,
+                     fused_depth=fused_depth)
+    assert_result_match(ref, got, f"{bm25_mode} depth {fused_depth}")
+    assert (got["fused"][1][:, 0] >= 0).all()
+
+
+@pytest.mark.parametrize("bm25_mode", ["sketch", "pages"])
+def test_search_rows_filters_match_jax(world, bm25_mode):
+    ref, got = _both(world, world["q"], world["qt"], mode="int8", bm25_mode=bm25_mode,
+                     level_code=1, lang_code=2, fused_depth=40)
+    assert_result_match(ref, got, f"filtered {bm25_mode}")
+
+
+@pytest.mark.parametrize("bm25_mode", ["sketch", "pages"])
+def test_padded_query_rows_match_jax(world, bm25_mode):
+    """B = 5 pads to the 8-query bucket; padded rows never leak out."""
+    ref, got = _both(world, world["q"][:5], world["qt"][:5], mode="int8",
+                     bm25_mode=bm25_mode)
+    assert_result_match(ref, got, f"padded {bm25_mode}")
+    assert got["fused"][1].shape == (5, 15)
+
+
+@pytest.mark.parametrize("fusion", ["equal", "score"])
+def test_fusion_modes_match_jax(world, fusion):
+    ref, got = _both(world, world["q"], world["qt"], mode="int8", bm25_mode="sketch",
+                     fusion=fusion, fused_depth=40)
+    assert_result_match(ref, got, f"fusion {fusion}")
+
+
+def test_blockmax_select_matches_jax(world):
+    ref, got = _both(world, world["q"], world["qt"], mode="int8", bm25_mode="sketch",
+                     select="blockmax")
+    assert_result_match(ref, got, "blockmax")
+
+
+def test_exact_dense_mode_matches_jax(world):
+    ref, got = _both(world, world["q"], world["qt"], mode="exact", bm25_mode="pages")
+    assert_result_match(ref, got, "exact dense")
+
+
+@pytest.mark.parametrize("batch", ["common", "rare"])
+def test_auto_route_matches_jax(world, batch, monkeypatch):
+    """The router on both packages: with the thresholds scaled to this small
+    corpus, common-term queries take the sketch, rare-term ones the pages."""
+    for bm in (world["j"].bm25, world["t"].bm25):
+        monkeypatch.setattr(bm, "pages_route_threshold", 200)
+        monkeypatch.setattr(bm, "disc_route_df_frac", 0.002)
+    qt = world["qt"][:8] if batch == "common" else world["rare_qt"]
+    tids = world["t"].bm25.query_tids(qt)
+    routes = world["t"].bm25.routes_pages(qt, tids, num_docs=world["t"].engine.capacity)
+    assert routes == (batch == "rare")
+    ref, got = _both(world, world["q"][:8], qt, mode="int8", fused_depth=40)
+    assert_result_match(ref, got, f"auto {batch}")
+
+
+def test_fetch_false_and_chunking_match_fetched(world):
+    t = world["t"]
+    full = t.search_rows(world["q"], world["qt"], bm25_mode="sketch")
+    packed, unpack = t.search_rows(world["q"], world["qt"], bm25_mode="sketch", fetch=False)
+    assert isinstance(packed, torch.Tensor)
+    piped = unpack()
+    eng = t.engine
+    saved = eng.usable_bytes
+    try:  # shrink the gate to 8-query batches: the searcher chunks
+        eng.usable_bytes = (eng.resident_bytes()
+                            + t.bm25.device_bytes_projected(eng.capacity)
+                            + 8 * eng.capacity * 24)
+        assert t.max_query_bucket() == 8
+        chunked = t.search_rows(world["q"], world["qt"], bm25_mode="sketch")
+    finally:
+        eng.usable_bytes = saved
+    for leg in full:
+        for other in (piped, chunked):
+            np.testing.assert_array_equal(other[leg][1], full[leg][1])
+            np.testing.assert_array_equal(other[leg][0], full[leg][0])
+
+
+@pytest.mark.parametrize("bm25_mode", ["sketch", "pages"])
+def test_state_carried_across_matches_jax(world, bm25_mode):
+    """convert.py: the port searches the JAX package's own tables."""
+    jh = world["j"]
+    je, jb = jh.engine, jh.bm25
+    jb.ensure_sketch(je.capacity)
+    jb.ensure_doc_major(je.capacity)
+    eng = engine_from_jax_state(
+        vecs=np.asarray(je.vecs), i8=np.asarray(je.i8), i8_lo=np.asarray(je.i8_lo),
+        i8_hi=np.asarray(je.i8_hi), codes=np.asarray(je.codes), valid=np.asarray(je.valid),
+        level=np.asarray(je.level), lang=np.asarray(je.lang), doc_len=np.asarray(je.doc_len),
+        count=je.count, capacity=je.capacity, device="cpu")
+    bm = bm25_from_jax_state(
+        terms=jb.terms, df=jb.df, term_start=jb._term_start, term_idf=jb._term_idf,
+        post_rows=jb._host_post_rows, post_tf=jb._host_post_tf, doc_lens=jb.doc_lens,
+        sketch=np.asarray(jb._sketch), sketch_scale=float(np.asarray(jb._sketch_scale)),
+        bins_per_term=jb._bins_per_term, signs_per_term=jb._signs_per_term,
+        dm_tids=np.asarray(jb._dm_tids), dm_tfs=np.asarray(jb._dm_tfs),
+        device="cpu", sketch_dim=S)
+    got = HybridSearcher(eng, bm).search_rows(world["q"], world["qt"], mode="int8",
+                                              bm25_mode=bm25_mode, fused_depth=40)
+    ref = jh.search_rows(world["q"], world["qt"], mode="int8", bm25_mode=bm25_mode,
+                         fused_depth=40)
+    assert_result_match(ref, got, f"carried {bm25_mode}")
+
+
+def test_empty_engine_returns_no_rows():
+    te = DeviceVectorIndex(D, device="cpu")
+    hs = HybridSearcher(te, BM25Index(device="cpu"))
+    res = hs.search_rows(np.zeros((3, D), np.float32), ["a", "b", "c"])
+    assert res["fused"][1].shape == (3, 15) and (res["fused"][1] == -1).all()
+    _, unpack = hs.search_rows(np.zeros((3, D), np.float32), ["a", "b", "c"], fetch=False)
+    assert (unpack()["dense"][1] == -1).all()

@@ -4,14 +4,24 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `radiant_rag_tpu_torch/csrc` (nvcc, into
-`build/kernels`), holds every kernel against its plain PyTorch version, then
-drives the port's main path -- `HybridSearcher.search_rows` over a 1M-row
-`DeviceVectorIndex` + `BM25Index` at B = 2048, k = 10, fused_k = 15, int8
-dense mode -- through the BM25 sketch route (fused depth 0 and 40), the
-block-max select, an auto-routed rare-term pages batch and fetch=False
-pipelining, and checks the results. The corpus is synthetic, made from a
-seed the way the JAX package's bench.py makes it (clustered 384-d vectors,
-zipfian 48-token texts).
+`build/kernels`), holds every kernel against its plain PyTorch version at
+edge shapes and at the main paths' own inputs, then drives two main paths
+over the JAX package's bench corpus (bench.py's generator, made from a
+seed: 1M docs of clustered 384-d vectors and zipfian 48-token texts):
+
+  phase 4  `HybridSearcher.search_rows` over a `DeviceVectorIndex` +
+           `BM25Index` at B = 2048, k = 10, fused_k = 15, int8 dense mode:
+           the BM25 sketch route (fused depth 0 and 40), the block-max
+           select, an auto-routed rare-term pages batch and fetch=False
+           pipelining;
+  phase 5  the memory-optimized preset (config.memory-optimized.example.yaml:
+           no fp32 vectors, binary Hamming stage 1, rescore multiplier 6.0,
+           BM25 sketch S = 512) through its store layer: `create_vector_store`
+           -> `TpuVectorStore.upsert_batch`, `PersistentBM25Index`, then
+           `search_rows` at the auto fused depth (60), sequential and
+           pipelined, one batch of queries nearer their documents, and
+           `retrieve_by_embedding_batch`; the stored sign words are held
+           against numpy's packing of the corpus vectors.
 
 Prints the card's name and power limit, the phases' numbers, one
 {"kernels": [...]} JSON line, and as its last line
@@ -22,9 +32,11 @@ of the repository, or when any phase fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -36,10 +48,35 @@ BATCH = 2048
 TOP_K = 10
 FUSED_K = 15
 FUSED_DEPTH = 40
-N_BATCHES = 6
+N_BATCHES = 3
 SEED = 42
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: device memory rate
-INT8_OPS_PER_S = 1.979e15  # H100 SXM: dense int8 tensor-core peak
+# H100 SXM: dense int8 tensor-core peak. The Hamming kernels' bound counts
+# their work at this rate too: the same function is a product of +-1 int8
+# sign matrices (<s_q, s_c> = 32 W - 2 distance), 2 x 32 W operations per
+# (query, row), which the library yardstick below runs on the tensor cores.
+INT8_OPS_PER_S = 1.979e15
+UPSERT_BATCH = 65_536
+LOW_NOISE = 0.05  # query noise of phase 5's second batch (the bench's is 0.25)
+MIN_LOW_NOISE_RECALL = 0.45
+
+# config.memory-optimized.example.yaml, as yaml.safe_load reads it (PyYAML
+# is not assumed here; tests/test_torch_store.py holds the two equal)
+MEMORY_OPTIMIZED_PRESET = {
+    "index": {"store_fp32": False},
+    "quantization": {"precision": "binary", "rescore_multiplier": 6.0},
+    "bm25": {"sketch_dim": 512},
+}
+
+PALLAS = "radiant_rag_tpu/ops/pallas_kernels.py"
+KERNEL_SOURCES = {  # name -> (source, the TPU kernel it replaces)
+    "int8_scan_topk": ("int8_scan_topk.cu", f"{PALLAS}:315"),
+    "blockmax2": ("blockmax2.cu", f"{PALLAS}:269"),
+    "hamming_scan_topk": ("hamming.cu", f"{PALLAS}:42"),
+    "hamming_scores": ("hamming.cu", f"{PALLAS}:42"),
+    "hamming_scores_t": ("hamming.cu", f"{PALLAS}:117"),
+    "int8_scores": ("int8_scores.cu", f"{PALLAS}:77"),
+}
 
 
 def log(msg: str) -> None:
@@ -64,10 +101,11 @@ def make_corpus(rng: np.random.Generator, n: int):
     return vecs, texts
 
 
-def cuda_ms(fn, reps: int = 3) -> float:
+def cuda_ms(fn, reps: int = 3, warm: bool = True) -> float:
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -79,84 +117,170 @@ def cuda_ms(fn, reps: int = 3) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def bound_ms(n: int, d: int, b: int, out_elems: int) -> float:
-    """Least time for the scan: each input read once, each output written
-    once, against the int8 operations at the tensor-core peak."""
-    moved = n * d + b * d + n + out_elems * 8
-    ops = 2.0 * b * n * d
-    return max(moved / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
+def bound(moved_bytes: float, ops: float):
+    """Least time for the work: each input read once and each output
+    written once at the memory rate, against the int8 operations at the
+    tensor-core peak. Returns (ms, "bytes" | "operations")."""
+    t_bytes, t_ops = moved_bytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernel_pair(name, kernel, plain, args):
-    """Kernel vs plain version on the same inputs: scores and rows equal."""
+def same(out, ref) -> float:
+    """Kernel output vs plain output, exactly (integer work); returns the
+    max abs error of the first output (0.0)."""
     import torch
 
-    s, r = kernel(*args)
+    out = out if isinstance(out, tuple) else (out,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for a, b in zip(out, ref):
+        if not torch.equal(a, b):
+            bad = int((a != b).reshape(a.shape[0], -1).any(dim=1).sum()) if a.numel() else 0
+            raise AssertionError(f"differs from the plain version in {bad} query rows")
+    return float((out[0].float() - ref[0].float()).abs().max()) if out[0].numel() else 0.0
+
+
+def check_kernel_pair(name, kernel, plain, args) -> float:
+    import torch
+
+    out = kernel(*args)
     torch.cuda.synchronize()
-    ps, pr = plain(*args)
-    if not torch.equal(r, pr):
-        bad = int((r != pr).any(dim=1).sum())
-        raise AssertionError(f"{name}: rows differ from the plain version in {bad} queries")
-    err = float((s - ps).abs().max()) if s.numel() else 0.0
-    if err != 0.0:
-        raise AssertionError(f"{name}: scores differ from the plain version by {err}")
-    return err
+    try:
+        return same(out, plain(*args))
+    except AssertionError as exc:
+        raise AssertionError(f"{name}: {exc}") from None
 
 
-def phase_kernels(ck, shapes):
-    """Main-path shapes: exact agreement and times. Launches made here are
-    comparisons, not main-path launches (the counts are reset before the
-    main path)."""
+def kernel_row(name, label, kernel, plain, args, library, moved, ops, key):
+    """One kernel at one shape: exact agreement with its plain version on
+    the same inputs, the kernel's, the plain version's and the library
+    call's times, and the bound (operations at the int8 tensor-core peak).
+    Launches made here are comparisons, not main-path launches (the counts
+    are reset before each main path); `key` is the shape's key in
+    `cuda_kernels.launches_by_shape`, whose main-path count the row gets."""
     import torch
 
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        err = same(out, ref)
+    except AssertionError as exc:
+        raise AssertionError(f"{name} [{label}]: {exc}") from None
+    del out, ref
+    ms = cuda_ms(lambda: kernel(*args), warm=False)
+    lib_ms = cuda_ms(library, reps=1)
+    b_ms, b_by = bound(moved, ops)
+    src, replaces = KERNEL_SOURCES[name]
+    row = {"name": name, "shape": label, "route": "cuda",
+           "source": f"radiant_rag_tpu_torch/csrc/{src}", "replaces": replaces,
+           "launches": 0, "max_abs_err": err, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "_key": key}
+    log(f"kernel {name} [{label}]: {ms:.3f} ms (plain {plain_ms:.3f}, library {lib_ms:.3f}, "
+        f"bound {b_ms:.3f} by {b_by}), exact")
+    return row
+
+
+def sign_matrix(words):
+    """(rows, W) int32 sign words -> (rows, 32 W) int8 of +-1 (bit set: +1),
+    the operand of the library yardstick: <s_q, s_c> = 32 W - 2 hamming."""
+    import torch
+
+    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
+    bits = (words[:, :, None] >> shifts) & 1
+    return (2 * bits - 1).to(torch.int8).reshape(words.shape[0], -1)
+
+
+def scan_rows(ck, label, codes, qi, mask, k):
+    """An int8_scan_topk row at a main-path shape."""
+    import torch
+
+    n, d = codes.shape
+    b = qi.shape[0]
+
+    def library():
+        sc = torch._int_mm(qi, codes.T)
+        sc.masked_fill_(~mask[None, :], torch.iinfo(torch.int32).min)
+        return torch.topk(sc, k, dim=1)
+
+    return kernel_row("int8_scan_topk", label, ck.int8_scan_topk, ck.int8_scan_topk_reference,
+                      (codes, qi, mask, k), library, n * d + b * d + n + b * k * 8,
+                      2.0 * b * n * d, ("int8_scan_topk", d, k))
+
+
+def blockmax_row(ck, label, codes, qi, mask):
+    import torch
+
+    n, d = codes.shape
+    b = qi.shape[0]
+
+    def library():
+        sc = torch._int_mm(qi, codes.T)
+        sc.masked_fill_(~mask[None, :], torch.iinfo(torch.int32).min)
+        return torch.topk(sc.view(sc.shape[0], -1, 512), 2, dim=2)
+
+    return kernel_row("blockmax2", label, ck.blockmax2, ck.blockmax2_reference,
+                      (codes, qi, mask), library, n * d + b * d + n + b * 2 * (n // 512) * 8,
+                      2.0 * b * n * d, ("blockmax2", d, 0))
+
+
+def hamming_rows(ck, codes, qwords, mask, qi, i8):
+    """The Hamming kernels and int8_scores at the main path's inputs: the
+    engine's sign words and int8 codes, the batch's packed / quantized
+    queries (B = 2048 for the fused scan, 1024 for the (B, N) outputs)."""
+    import torch
+
+    n, w = codes.shape
     rows = []
-    for label, codes, qi, mask, k in shapes:
-        n, d = codes.shape
-        b = qi.shape[0]
-        if k:
-            name, kern, plain = "int8_scan_topk", ck.int8_scan_topk, ck.int8_scan_topk_reference
-            args = (codes, qi, mask, k)
-            out_elems = b * k
+    csign = sign_matrix(codes)
+    qsign = sign_matrix(qwords)
+    for k in (60, 240, 360):
+        b = qwords.shape[0]
 
-            def library(codes=codes, qi=qi, k=k, mask=mask):
-                sc = torch._int_mm(qi, codes.T)
-                sc.masked_fill_(~mask[None, :], torch.iinfo(torch.int32).min)
-                return torch.topk(sc, k, dim=1)
-        else:
-            name, kern, plain = "blockmax2", ck.blockmax2, ck.blockmax2_reference
-            args = (codes, qi, mask)
-            out_elems = b * 2 * (n // 512)
+        def library(k=k):
+            sc = torch._int_mm(qsign, csign.T)
+            sc.masked_fill_(~mask[None, :], torch.iinfo(torch.int32).min)
+            return torch.topk(sc, k, dim=1)
 
-            def library(codes=codes, qi=qi, mask=mask):
-                sc = torch._int_mm(qi, codes.T)
-                sc.masked_fill_(~mask[None, :], torch.iinfo(torch.int32).min)
-                return torch.topk(sc.view(sc.shape[0], -1, 512), 2, dim=2)
-        err = check_kernel_pair(f"{name} [{label}]", kern, plain, args)
-        ms = cuda_ms(lambda: kern(*args))
-        plain_ms = cuda_ms(lambda: plain(*args), reps=1)
-        lib_ms = cuda_ms(library, reps=1)
-        rows.append({
-            "name": name, "shape": label, "route": "cuda",
-            "source": f"radiant_rag_tpu_torch/csrc/{name}.cu",
-            "replaces": ("radiant_rag_tpu/ops/pallas_kernels.py:315" if k else
-                         "radiant_rag_tpu/ops/pallas_kernels.py:269"),
-            "launches": 0, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms(n, d, b, out_elems),
-            "bound_by": "operations", "library_ms": lib_ms,
-        })
-        log(f"kernel {name} [{label}]: {ms:.3f} ms (plain {plain_ms:.3f}, "
-            f"library {lib_ms:.3f}, bound {rows[-1]['bound_ms']:.3f}), exact")
+        rows.append(kernel_row(
+            "hamming_scan_topk", f"W={w} B={b} k={k}", ck.hamming_scan_topk,
+            ck.hamming_scan_topk_reference, (codes, qwords, mask, k), library,
+            n * w * 4 + b * w * 4 + n + b * k * 8, 2.0 * b * n * 32 * w,
+            ("hamming_scan_topk", w, k)))
+    b = 1024
+    q1, qs1 = qwords[:b].contiguous(), qsign[:b].contiguous()
+    codes_t = codes.T.contiguous()
+    hlib = lambda: torch._int_mm(qs1, csign.T)  # noqa: E731 (32 W - 2 hamming)
+    moved = n * w * 4 + b * w * 4 + b * n * 4
+    rows.append(kernel_row("hamming_scores", f"W={w} B={b}", ck.hamming_scores,
+                           ck.hamming_scores_reference, (codes, q1), hlib, moved,
+                           2.0 * b * n * 32 * w, ("hamming_scores", w, 0)))
+    rows.append(kernel_row("hamming_scores_t", f"W={w} B={b} (W, N) codes",
+                           ck.hamming_scores_t, ck.hamming_scores_t_reference, (codes_t, q1),
+                           hlib, moved, 2.0 * b * n * 32 * w, ("hamming_scores_t", w, 0)))
+    del csign, codes_t
+    qi1 = qi[:b].contiguous()
+    d = i8.shape[1]
+    rows.append(kernel_row("int8_scores", f"D={d} B={b}", ck.int8_scores,
+                           ck.int8_scores_reference, (i8, qi1),
+                           lambda: torch._int_mm(qi1, i8.T), n * d + b * d + b * n * 4,
+                           2.0 * b * n * d, ("int8_scores", d, 0)))
     return rows
 
 
 def phase_edges(ck):
-    """Edge shapes: ragged N, masked rows and a fully dead 512-row tile,
-    forced ties (duplicated rows, narrow value range), B = 1."""
+    """Edge shapes of every kernel: ragged N, masked rows and a fully dead
+    512-row tile, forced ties (duplicated rows, narrow value range), W = 24,
+    B = 1, and the k the presets reach at the auto fused depth."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [(5000, 384, 33, 40, -127, 128), (5000, 1024, 1, 160, -2, 3),
-             (70_000, 384, 70, 160, -1, 2), (3000, 64, 5, 256, -127, 128)]
+             (70_000, 384, 70, 160, -1, 2), (3000, 64, 5, 256, -127, 128),
+             (20_001, 384, 40, 360, -2, 3), (9000, 512, 3, 360, -1, 2),
+             (12_000, 1024, 33, 240, -2, 3), (5000, 384, 1, 512, -1, 2)]
     for n, d, b, k, lo, hi in cases:
         codes = torch.randint(lo, hi, (n, d), dtype=torch.int8, device="cuda", generator=g)
         codes[n // 2: n // 2 + 7] = codes[11]  # exact duplicates: ties at one score
@@ -168,7 +292,29 @@ def phase_edges(ck):
                           ck.int8_scan_topk, ck.int8_scan_topk_reference, (codes, qi, mask, k))
         check_kernel_pair(f"blockmax2 edge n={n} d={d} b={b}",
                           ck.blockmax2, ck.blockmax2_reference, (codes, qi, mask))
-    log(f"edge shapes: {len(cases)} cases x 2 kernels exact")
+        check_kernel_pair(f"int8_scores edge n={n} d={d} b={b}", ck.int8_scores,
+                          ck.int8_scores_reference, (codes, qi))
+    hcases = [(20_001, 12, 40, 360, True), (5001, 12, 1, 60, True), (70_001, 24, 65, 240, False),
+              (3000, 12, 8, 512, True), (100, 12, 4, 360, False)]
+    for n, w, b, k, ties in hcases:
+        words = torch.randint(-2**31, 2**31 - 1, (n, w), dtype=torch.int32, device="cuda",
+                              generator=g)
+        if ties:  # few distinct words: raw takes few values, ties at every k
+            words &= 0x0F0F0F0F
+        words[n // 2: n // 2 + 9] = words[5]  # a block of duplicate codes
+        q = torch.randint(-2**31, 2**31 - 1, (b, w), dtype=torch.int32, device="cuda",
+                          generator=g)
+        mask = torch.ones(n, dtype=torch.bool, device="cuda")
+        mask[2:50] = False
+        check_kernel_pair(f"hamming_scan_topk edge n={n} w={w} b={b} k={k}",
+                          ck.hamming_scan_topk, ck.hamming_scan_topk_reference,
+                          (words, q, mask, k))
+        check_kernel_pair(f"hamming_scores edge n={n} w={w} b={b}", ck.hamming_scores,
+                          ck.hamming_scores_reference, (words, q))
+        check_kernel_pair(f"hamming_scores_t edge n={n} w={w} b={b}", ck.hamming_scores_t,
+                          ck.hamming_scores_t_reference, (words.T.contiguous(), q))
+    log(f"edge shapes: {len(cases)} int8 cases x 3 kernels, {len(hcases)} Hamming cases x 3 "
+        "kernels, all exact")
 
 
 def small_path_check():
@@ -185,33 +331,39 @@ def small_path_check():
     q = vecs[:37] + 0.25 * rng.standard_normal((37, DIM)).astype(np.float32)
     q /= np.linalg.norm(q, axis=1, keepdims=True)
     qt = [" ".join(t.split()[:6]) for t in texts[:37]]
+    variants = (("int8", "sketch", 0, "", 4.0), ("int8", "sketch", FUSED_DEPTH, "", 4.0),
+                ("int8", "pages", 0, "", 4.0), ("int8", "sketch", 0, "blockmax", 4.0),
+                ("binary", "sketch", 60, "", 6.0), ("binary", "pages", 60, "", 6.0))
     out = {}
     for dev in ("cpu", "cuda"):
-        eng = DeviceVectorIndex(DIM, initial_capacity=n, device=dev)
-        eng.append(vecs, np.zeros(n, np.int8), np.zeros(n, np.int32), np.full(n, 48, np.float32))
-        bm = BM25Index(device=dev)
-        bm.bulk_build(list(range(n)), texts)
-        hs = HybridSearcher(eng, bm)
-        out[dev] = [hs.search_rows(q, qt, mode="int8", bm25_mode=route, fused_depth=fd,
-                                   select=sel)
-                    for route, fd, sel in (("sketch", 0, ""), ("sketch", FUSED_DEPTH, ""),
-                                           ("pages", 0, ""), ("sketch", 0, "blockmax"))]
+        out[dev] = []
+        for store_fp32 in (True, False):
+            eng = DeviceVectorIndex(DIM, initial_capacity=n, device=dev, store_fp32=store_fp32)
+            eng.append(vecs, np.zeros(n, np.int8), np.zeros(n, np.int32),
+                       np.full(n, 48, np.float32))
+            bm = BM25Index(device=dev)
+            bm.bulk_build(list(range(n)), texts)
+            hs = HybridSearcher(eng, bm)
+            out[dev] += [hs.search_rows(q, qt, mode=mode, bm25_mode=route, fused_depth=fd,
+                                        select=sel, rescore_multiplier=mult)
+                         for mode, route, fd, sel, mult in variants]
     for i, (a, c) in enumerate(zip(out["cpu"], out["cuda"])):
         for leg in ("dense", "bm25", "fused"):
             (ref_s, ref_r), (got_s, got_r) = a[leg], c[leg]
             np.testing.assert_allclose(got_s, ref_s, rtol=1e-5, atol=1e-6)
             # rows equal, except a swap of two rows whose CPU scores are tied
             # within that tolerance (the sums run in another order on the card)
-            for q, slot in zip(*np.nonzero(ref_r != got_r)):
-                other = np.nonzero(ref_r[q] == got_r[q, slot])[0]
-                check(len(other) == 1 and got_r[q, other[0]] == ref_r[q, slot]
-                      and abs(ref_s[q, slot] - ref_s[q, other[0]])
-                      <= 1e-6 + 1e-5 * abs(ref_s[q, slot]),
-                      f"small path run {i} {leg}: card rows differ from CPU, query {q}")
-    log("small path: card == CPU plain path on 4 route/select variants")
+            for q_, slot in zip(*np.nonzero(ref_r != got_r)):
+                other = np.nonzero(ref_r[q_] == got_r[q_, slot])[0]
+                check(len(other) == 1 and got_r[q_, other[0]] == ref_r[q_, slot]
+                      and abs(ref_s[q_, slot] - ref_s[q_, other[0]])
+                      <= 1e-6 + 1e-5 * abs(ref_s[q_, slot]),
+                      f"small path run {i} {leg}: card rows differ from CPU, query {q_}")
+    log(f"small path: card == CPU plain path on {len(out['cpu'])} mode/route/select/fp32 "
+        "variants")
 
 
-def profile_batch(fn) -> None:
+def profile_batch(fn, what: str) -> None:
     """Device time by kernel and the device's idle share over one batch
     (torch.profiler, CUPTI). Measurement only: without device events it
     says "not measured" and the run goes on."""
@@ -227,7 +379,7 @@ def profile_batch(fn) -> None:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0]
     if not kernels:
-        log("profile: no device events (device time not measured)")
+        log(f"profile ({what}): no device events (device time not measured)")
         return
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
@@ -241,10 +393,51 @@ def profile_batch(fn) -> None:
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    log(f"profile (one sketch-route batch): wall {wall_us / 1e3:.1f} ms, device busy "
+    log(f"profile ({what}): wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy / 1e3:.1f} ms, idle share {max(0.0, 1 - busy / wall_us):.3f}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {us / 1e3:9.3f} ms  {name[:110]}")
+
+
+def exact_top10(vecs: np.ndarray, q: np.ndarray):
+    """Recall oracle: exact fp32 cosine top-10 over the host vectors, a
+    plain matmul on the card in row chunks (off the path under test)."""
+    import torch
+
+    qd = torch.from_numpy(q).cuda()
+    best_s = torch.full((q.shape[0], TOP_K), -2.0, device="cuda")
+    best_i = torch.full((q.shape[0], TOP_K), -1, dtype=torch.int64, device="cuda")
+    step = 1 << 17
+    for s in range(0, vecs.shape[0], step):
+        sc = qd @ torch.from_numpy(vecs[s:s + step]).cuda().T
+        cs, ci = torch.topk(sc, min(TOP_K, sc.shape[1]), dim=1)
+        alls = torch.cat([best_s, cs], 1)
+        alli = torch.cat([best_i, ci + s], 1)
+        top = torch.topk(alls, TOP_K, dim=1).indices
+        best_s, best_i = alls.gather(1, top), alli.gather(1, top)
+    return best_i.cpu().numpy()
+
+
+def stage1_rescored_top10(vecs: np.ndarray, q: np.ndarray, cand) -> np.ndarray:
+    """Top-10 of (B, kc) stage-1 candidate rows (a device tensor, -1 =
+    empty) rescored exactly in fp32 against the host vectors."""
+    import torch
+
+    out = np.empty((q.shape[0], TOP_K), np.int64)
+    step = 256
+    for s in range(0, q.shape[0], step):
+        c = cand[s:s + step].cpu().numpy().astype(np.int64)
+        cv = torch.from_numpy(vecs[np.maximum(c, 0)]).cuda()  # (b, kc, D)
+        sc = torch.einsum("bd,bkd->bk", torch.from_numpy(q[s:s + step]).cuda(), cv)
+        sc = torch.where(torch.from_numpy(c >= 0).cuda(), sc, -3.0e38)
+        top = torch.topk(sc, TOP_K, dim=1).indices.cpu().numpy()
+        out[s:s + step] = np.take_along_axis(c, top, 1)
+    return out
+
+
+def recall_at_10(rows: np.ndarray, exact: np.ndarray) -> float:
+    return float(np.mean([len(set(rows[i]) & set(exact[i])) / TOP_K
+                          for i in range(rows.shape[0])]))
 
 
 def main() -> int:
@@ -264,6 +457,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 rescore and exact oracle stay fp32
     torch.backends.cudnn.allow_tf32 = False
     log("tf32: off for matmul and cudnn")
+    t_start = time.perf_counter()
 
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -304,11 +498,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     eng = DeviceVectorIndex(DIM, initial_capacity=N_DOCS)
-    chunk = 65536
-    for s in range(0, N_DOCS, chunk):
-        eng.append(vecs[s:s + chunk], np.zeros(min(chunk, N_DOCS - s), np.int8),
-                   np.zeros(min(chunk, N_DOCS - s), np.int32),
-                   np.full(min(chunk, N_DOCS - s), 48, np.float32))
+    for s in range(0, N_DOCS, UPSERT_BATCH):
+        m = min(UPSERT_BATCH, N_DOCS - s)
+        eng.append(vecs[s:s + m], np.zeros(m, np.int8), np.zeros(m, np.int32),
+                   np.full(m, 48, np.float32))
     torch.cuda.synchronize()
     t_eng = time.perf_counter() - t0
     bm = BM25Index()
@@ -323,62 +516,67 @@ def main() -> int:
         f"L={bm.doc_major_width}, max bucket {searcher.max_query_bucket()}")
     check(eng.capacity == 1 << 20 and bm.sketch_dim == 1024 and bm.doc_major_width == 128)
 
-    # phase 3 at the main path's own inputs: the dense leg's quantized
-    # queries over the engine codes, the sketch leg's indicators over the sketch
+    # phase 3 at the main paths' own inputs: the dense leg's quantized
+    # queries over the engine codes, the sketch leg's indicators over the
+    # sketch, the batch's packed sign words over the engine's sign words
     qb, tb = queries[:BATCH], qtexts[:BATCH]
+    q16 = torch.from_numpy(qb.astype(np.float16).astype(np.float32)).cuda()
     scale, _ = qz.int8_scale_offset(eng.i8_lo, eng.i8_hi)
-    qi_dense, _ = quantize_queries(torch.from_numpy(qb.astype(np.float16).astype(np.float32)
-                                                    ).cuda(), scale)
+    qi_dense, _ = quantize_queries(q16, scale)
+    qwords = qz.pack_binary(q16)
     qind = torch.from_numpy(bm.make_query_indicator(tb, bm.query_tids(tb))).cuda()
     mask = eng.valid.clone()
-    shapes = [("dense D=384 k=40", eng.i8, qi_dense, mask, 4 * TOP_K),
-              ("dense D=384 k=160", eng.i8, qi_dense, mask, 4 * FUSED_DEPTH),
-              ("sketch S=1024 k=40", bm._sketch, qind, mask, 4 * TOP_K),
-              ("sketch S=1024 k=160", bm._sketch, qind, mask, 4 * FUSED_DEPTH),
-              ("dense D=384 blockmax", eng.i8, qi_dense, mask, 0),
-              ("sketch S=1024 blockmax", bm._sketch, qind, mask, 0)]
-    krows = phase_kernels(ck, shapes)
-    del qi_dense, qind, mask
+    krows = [scan_rows(ck, "dense D=384 k=40", eng.i8, qi_dense, mask, 4 * TOP_K),
+             scan_rows(ck, "dense D=384 k=160", eng.i8, qi_dense, mask, 4 * FUSED_DEPTH),
+             scan_rows(ck, "dense D=384 k=360", eng.i8, qi_dense, mask, 360),
+             scan_rows(ck, "sketch S=1024 k=40", bm._sketch, qind, mask, 4 * TOP_K),
+             scan_rows(ck, "sketch S=1024 k=160", bm._sketch, qind, mask, 4 * FUSED_DEPTH),
+             scan_rows(ck, "sketch S=1024 k=240", bm._sketch, qind, mask, 240),
+             blockmax_row(ck, "dense D=384 blockmax", eng.i8, qi_dense, mask),
+             blockmax_row(ck, "sketch S=1024 blockmax", bm._sketch, qind, mask)]
+    krows += hamming_rows(ck, eng.codes, qwords, mask, qi_dense, eng.i8)
+    del qi_dense, qind, mask, qwords, q16
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
     # phase 4: the main path. Counts are set to 0 just before each run and
-    # read just after; comparison launches above do not count.
-    launches = {"int8_scan_topk": 0, "blockmax2": 0}
+    # read just after; comparison launches above and below do not count.
+    launches = {fn.__name__: 0 for fn in ck.KERNELS}
+    shape_launches = {}  # (kernel, D or W, k or 0) -> main-path launches
 
     def run(label, fn, n_batches):
-        ck.int8_scan_topk.launches = 0
-        ck.blockmax2.launches = 0
+        ck.reset_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
-        d_scan, d_bm = ck.int8_scan_topk.launches, ck.blockmax2.launches
-        launches["int8_scan_topk"] += d_scan
-        launches["blockmax2"] += d_bm
+        delta = {fn_.__name__: fn_.launches for fn_ in ck.KERNELS}
+        for name, n in delta.items():
+            launches[name] += n
+        for key, n in ck.launches_by_shape.items():
+            shape_launches[key] = shape_launches.get(key, 0) + n
+        shown = ", ".join(f"{k} {v}" for k, v in delta.items() if v)
         log(f"{label}: {dt / n_batches * 1e3:.1f} ms/batch, {n_batches * BATCH / dt:.1f} QPS; "
-            f"launches int8_scan_topk {d_scan}, blockmax2 {d_bm}")
-        return out, d_scan, d_bm
+            f"launches {shown or 'none'}")
+        return out, delta
 
     def batches(fd, select="", n=N_BATCHES):
-        res = []
-        for i in range(n):
-            res.append(searcher.search_rows(
-                queries[i * BATCH:(i + 1) * BATCH], qtexts[i * BATCH:(i + 1) * BATCH],
-                dense_k=TOP_K, bm25_k=TOP_K, fused_k=FUSED_K, mode="int8",
-                fused_depth=fd, select=select))
-        return res
+        return [searcher.search_rows(
+            queries[i * BATCH:(i + 1) * BATCH], qtexts[i * BATCH:(i + 1) * BATCH],
+            dense_k=TOP_K, bm25_k=TOP_K, fused_k=FUSED_K, mode="int8",
+            fused_depth=fd, select=select) for i in range(n)]
 
     torch.cuda.reset_peak_memory_stats()
     batches(0, n=1)  # warm-up (allocator, host caches)
-    res0, d_scan, _ = run("sketch route, fused_depth 0", lambda: batches(0), N_BATCHES)
-    check(d_scan == 2 * N_BATCHES, f"expected 2 scan launches per sketch batch, got {d_scan}")
-    res40, d_scan, _ = run(f"sketch route, fused_depth {FUSED_DEPTH}",
-                           lambda: batches(FUSED_DEPTH), N_BATCHES)
-    check(d_scan == 2 * N_BATCHES)
-    resbm, d_scan, d_bm = run("sketch route, select=blockmax",
-                              lambda: batches(0, "blockmax", 2), 2)
-    check(d_bm == 4 and d_scan == 0, (d_bm, d_scan))
+    res0, d = run("sketch route, fused_depth 0", lambda: batches(0), N_BATCHES)
+    check(d["int8_scan_topk"] == 2 * N_BATCHES,
+          f"expected 2 scan launches per sketch batch, got {d['int8_scan_topk']}")
+    res40, d = run(f"sketch route, fused_depth {FUSED_DEPTH}", lambda: batches(FUSED_DEPTH),
+                   N_BATCHES)
+    check(d["int8_scan_topk"] == 2 * N_BATCHES)
+    resbm, d = run("sketch route, select=blockmax", lambda: batches(0, "blockmax", 2), 2)
+    check(d["blockmax2"] == 4 and d["int8_scan_topk"] == 0, d)
 
     # a small rare-term batch the router sends to the exact pages route
     lengths = np.diff(bm._term_start)
@@ -387,9 +585,10 @@ def main() -> int:
     rare_texts = [f"{bm.terms[a]} {bm.terms[c]}" for a, c in picks]
     check(bm.routes_pages(rare_texts, bm.query_tids(rare_texts), num_docs=eng.capacity))
     rq = queries[:16]
-    resp, d_scan, d_bm = run("rare-term batch (B=16), auto route", lambda: searcher.search_rows(
+    resp, d = run("rare-term batch (B=16), auto route", lambda: searcher.search_rows(
         rq, rare_texts, dense_k=TOP_K, bm25_k=TOP_K, fused_k=FUSED_K, mode="int8"), 1)
-    check(d_scan == 1 and d_bm == 0, "the rare-term batch did not take the pages route")
+    check(d["int8_scan_topk"] == 1 and d["blockmax2"] == 0,
+          "the rare-term batch did not take the pages route")
     for qi_, (a, c) in enumerate(picks):
         hits = [r for r in resp["bm25"][1][qi_] if r >= 0]
         check(hits, f"pages route found nothing for {rare_texts[qi_]!r}")
@@ -405,11 +604,11 @@ def main() -> int:
                 for i in range(N_BATCHES)]
         return [unpack() for unpack in pend]
 
-    respipe, d_scan, _ = run("fetch=False pipelined, fused_depth 0", pipelined, N_BATCHES)
-    check(d_scan == 2 * N_BATCHES)
+    respipe, d = run("fetch=False pipelined, fused_depth 0", pipelined, N_BATCHES)
+    check(d["int8_scan_topk"] == 2 * N_BATCHES)
     peak = torch.cuda.max_memory_allocated()
     try:
-        profile_batch(lambda: batches(0, n=1))
+        profile_batch(lambda: batches(0, n=1), "one int8 sketch-route batch")
     except Exception as exc:  # measurement only: report it, keep the run
         log(f"profile: unavailable ({type(exc).__name__}: {exc}); device time not measured")
     log(f"max_memory_allocated: {peak / 2**30:.2f} GiB")
@@ -426,12 +625,11 @@ def main() -> int:
     for a, c in zip(res0, respipe):
         for leg in ("dense", "bm25", "fused"):
             check(np.array_equal(a[leg][1], c[leg][1]), f"pipelined {leg} rows differ")
-    ex_s, ex_rows = eng.search(queries[:BATCH], TOP_K, mode="exact")
-    dense_rows = res0[0]["dense"][1]
-    recall = float(np.mean([len(set(dense_rows[i]) & set(ex_rows[i])) / TOP_K
-                            for i in range(BATCH)]))
-    recall_bm = float(np.mean([len(set(resbm[0]["dense"][1][i]) & set(ex_rows[i])) / TOP_K
-                               for i in range(BATCH)]))
+    exact0 = exact_top10(vecs, queries[:BATCH])
+    _, ex_rows = eng.search(queries[:BATCH], TOP_K, mode="exact")
+    check(recall_at_10(ex_rows, exact0) >= 0.999, "exact mode disagrees with the oracle")
+    recall = recall_at_10(res0[0]["dense"][1], exact0)
+    recall_bm = recall_at_10(resbm[0]["dense"][1], exact0)
     log(f"dense recall@10 vs exact: {recall:.4f} (fused scan), {recall_bm:.4f} (blockmax)")
     check(recall >= 0.9, recall)
     for i in range(64):  # the bm25 leg returns docs holding a query term
@@ -439,16 +637,225 @@ def main() -> int:
         for r in res0[0]["bm25"][1][i]:
             if r >= 0:
                 check(words & set(texts[r].split()), (i, r))
+    del searcher, eng, bm, res0, res40, resbm, resp, respipe
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
-    for row in krows:
-        row["launches"] = launches[row["name"]]
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was never launched on the main path")
+    krows += phase_memory_optimized(ck, run, launches, vecs, texts, queries, qtexts)
+
+    # each row gets the main-path launches at its own shape (the dense
+    # D = 384, k = 40 row includes the B = 16 pages-route batch)
+    row_keys = [row.pop("_key") for row in krows]
+    check(len(set(row_keys)) == len(row_keys), "two kernel rows at one shape")
+    for row, key in zip(krows, row_keys):
+        row["launches"] = shape_launches.get(key, 0)
+    check(set(shape_launches) <= set(row_keys),
+          f"main-path launches at shapes no row measured: {set(shape_launches) - set(row_keys)}")
+    log(f"main-path launches by shape: "
+        f"{json.dumps({'/'.join(map(str, k)): v for k, v in sorted(shape_launches.items())})}")
+    on_path = ("int8_scan_topk", "blockmax2", "hamming_scan_topk")
+    for name in on_path:
+        check(launches[name] > 0, f"kernel {name} was never launched on a main path")
+    log(f"main-path launches: {json.dumps(launches)} (hamming_scores, hamming_scores_t and "
+        "int8_scores have no caller on a main path)")
+    log(f"total run time: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": krows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def phase_memory_optimized(ck, run, launches, vecs, texts, queries, qtexts):
+    """Phase 5: the memory-optimized preset at 1M docs through the store
+    layer. Returns the kernel row of its sketch-leg shape (S = 512, k = 360)."""
+    import torch
+
+    from radiant_rag_tpu_torch.config import config_from_dict
+    from radiant_rag_tpu_torch.index.bm25 import PersistentBM25Index
+    from radiant_rag_tpu_torch.index.factory import create_vector_store
+    from radiant_rag_tpu_torch.index.hybrid import HybridSearcher, resolve_fused_depth
+    from radiant_rag_tpu_torch.ops import quantize as qz
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    cfg = config_from_dict(MEMORY_OPTIMIZED_PRESET)
+    # the bench corpus is 384-d (the default MiniLM-class embedder; with its
+    # weights set the JAX package's embedding preset leaves index.dim alone),
+    # and the store starts empty in a fresh directory
+    cfg = dataclasses.replace(cfg, index=dataclasses.replace(
+        cfg.index, dim=DIM, data_dir=str(Path(tmp.name) / "index")))
+    check(not cfg.index.store_fp32 and cfg.quantization.precision == "binary"
+          and cfg.quantization.rescore_multiplier == 6.0 and cfg.bm25.sketch_dim == 512)
+    fused_depth = resolve_fused_depth(cfg.retrieval)
+    check(fused_depth == 60, fused_depth)
+
+    t0 = time.perf_counter()
+    store = create_vector_store(cfg)
+    store.reserve(N_DOCS)
+    ids = []
+    for s in range(0, N_DOCS, UPSERT_BATCH):
+        e = min(N_DOCS, s + UPSERT_BATCH)
+        ids += store.upsert_batch([(texts[i], {"source": f"bench/doc{i}"}, vecs[i])
+                                   for i in range(s, e)])
+    torch.cuda.synchronize()
+    t_upsert = time.perf_counter() - t0
+    check(len(set(ids)) == N_DOCS, "doc ids are not unique")
+    check(all(store.row_of(ids[i]) == i for i in range(0, N_DOCS, 997)),
+          "store rows do not follow corpus order")
+    eng = store.engine
+    mem = eng.memory_bytes()
+    log(f"preset store: upsert {N_DOCS} docs in {t_upsert:.1f} s "
+        f"({N_DOCS / t_upsert:.0f} docs/s); capacity {eng.capacity}; engine.memory_bytes() "
+        f"{mem} = {sum(mem.values()) / eng.capacity:.0f} B/row")
+    check(type(store).__name__ == "TpuVectorStore" and store.default_search_mode == "binary")
+    check(mem == {"fp32": 0, "binary": eng.capacity * 48, "int8": eng.capacity * DIM}, mem)
+
+    t0 = time.perf_counter()
+    pbm = PersistentBM25Index.from_config(store, cfg.bm25,
+                                          path=str(Path(tmp.name) / "bm25.json.gz"))
+    check(pbm.build_from_store() == N_DOCS)
+    bm = pbm.index
+    searcher = HybridSearcher(eng, bm)
+    searcher.default_fused_depth = fused_depth
+    bm.ensure_sketch(eng.capacity)
+    bm.ensure_doc_major(eng.capacity)
+    torch.cuda.synchronize()
+    log(f"preset BM25: build_from_store + sketch in {time.perf_counter() - t0:.1f} s; "
+        f"S={bm.sketch_dim}, L={bm.doc_major_width}; file written: "
+        f"{(Path(tmp.name) / 'bm25.json.gz').exists()} (persist_max_docs "
+        f"{cfg.bm25.persist_max_docs})")
+    check(bm.sketch_dim == 512)
+
+    mult = cfg.quantization.rescore_multiplier
+
+    def batch(i, fetch=True):
+        return searcher.search_rows(
+            queries[i * BATCH:(i + 1) * BATCH], qtexts[i * BATCH:(i + 1) * BATCH],
+            dense_k=TOP_K, bm25_k=TOP_K, fused_k=FUSED_K, mode=store.default_search_mode,
+            rescore_multiplier=mult, fusion="confidence", fetch=fetch)
+
+    torch.cuda.reset_peak_memory_stats()
+    batch(0)  # warm-up
+    res, d = run("preset: search_rows binary, fused depth 60, x6.0",
+                 lambda: [batch(i) for i in range(N_BATCHES)], N_BATCHES)
+    check(d["hamming_scan_topk"] == N_BATCHES and d["int8_scan_topk"] == N_BATCHES
+          and d["blockmax2"] == 0,
+          f"expected one Hamming and one (sketch-leg) int8 scan per batch, got {d}")
+    respipe, d = run("preset: search_rows pipelined (fetch=False)",
+                     lambda: [u() for u in [batch(i, fetch=False)[1]
+                                            for i in range(N_BATCHES)]], N_BATCHES)
+    check(d["hamming_scan_topk"] == N_BATCHES and d["int8_scan_topk"] == N_BATCHES, d)
+    # a batch of the same shape whose queries lie nearer their documents
+    # (noise LOW_NOISE per coordinate against the bench's 0.25, under which
+    # a query's sign bits are mostly noise)
+    lrng = np.random.default_rng(SEED + 2)
+    lidx = lrng.integers(0, N_DOCS, BATCH)
+    qlow = vecs[lidx] + LOW_NOISE * lrng.standard_normal((BATCH, DIM)).astype(np.float32)
+    qlow /= np.linalg.norm(qlow, axis=1, keepdims=True)
+    qlow_t = [" ".join(texts[i].split()[:6]) for i in lidx]
+    reslow, d = run(f"preset: one batch at query noise {LOW_NOISE}", lambda: searcher.search_rows(
+        qlow, qlow_t, dense_k=TOP_K, bm25_k=TOP_K, fused_k=FUSED_K,
+        mode=store.default_search_mode, rescore_multiplier=mult, fusion="confidence"), 1)
+    check(d["hamming_scan_topk"] == 1 and d["int8_scan_topk"] == 1, d)
+    t0 = time.perf_counter()  # warm-up: first calls of the engine and the store
+    eng.search(queries[BATCH:2 * BATCH], TOP_K, mode="binary", rescore_multiplier=mult)
+    t1 = time.perf_counter()
+    store.retrieve_by_embedding_batch(queries[BATCH:2 * BATCH], top_k=TOP_K)
+    log(f"preset: first calls: engine.search {t1 - t0:.2f} s, then "
+        f"retrieve_by_embedding_batch {time.perf_counter() - t1:.2f} s")
+    hits, d = run("preset: retrieve_by_embedding_batch (top_k 10)",
+                  lambda: store.retrieve_by_embedding_batch(queries[:BATCH], top_k=TOP_K), 1)
+    check(d["hamming_scan_topk"] == 1 and d["int8_scan_topk"] == 0, d)
+    ms = cuda_ms(lambda: eng.search(queries[:BATCH], TOP_K, mode="binary",
+                                    rescore_multiplier=mult), reps=2)
+    log(f"preset: of which engine.search (binary, kc 60): {ms:.1f} ms")
+    peak = torch.cuda.max_memory_allocated()
+    try:
+        profile_batch(lambda: batch(0), "one preset batch")
+    except Exception as exc:  # measurement only: report it, keep the run
+        log(f"profile: unavailable ({type(exc).__name__}: {exc}); device time not measured")
+    log(f"preset max_memory_allocated: {peak / 2**30:.2f} GiB")
+
+    for r in res + respipe + [reslow]:
+        for leg, k in (("dense", TOP_K), ("bm25", TOP_K), ("fused", FUSED_K)):
+            s, rows = r[leg]
+            check(s.shape == (BATCH, k) and rows.shape == (BATCH, k), leg)
+            live = rows >= 0
+            check(np.isfinite(s[live]).all() and (rows < N_DOCS).all(), leg)
+            check(live[:, 0].all(), f"preset {leg}: a query returned nothing")
+    for a, c in zip(res, respipe):
+        for leg in ("dense", "bm25", "fused"):
+            check(np.array_equal(a[leg][1], c[leg][1]), f"preset pipelined {leg} rows differ")
+    for i in range(64):  # the bm25 leg returns docs holding a query term
+        words = set(qtexts[i].split())
+        for r in res[0]["bm25"][1][i]:
+            if r >= 0:
+                check(words & set(texts[r].split()), (i, r))
+
+    # an independent witness of the stored sign words: the host vectors'
+    # sign bits, packed in numpy (bit j of word w is dimension 32 w + j, the
+    # JAX package's order), equal the store's words row for row
+    host_words = np.packbits(vecs > 0, axis=1, bitorder="little").view("<u4").view(np.int32)
+    check(np.array_equal(eng.codes[:N_DOCS].cpu().numpy(), host_words),
+          "the store's sign words are not the corpus vectors' sign bits in corpus order")
+    check(bool(eng.valid[:N_DOCS].all()) and not bool(eng.valid[N_DOCS:].any()),
+          "the store's live rows are not the corpus rows")
+    hwords = torch.from_numpy(host_words).cuda()
+    del host_words
+    log(f"preset sign words == numpy packbits of the corpus vectors ({N_DOCS} rows)")
+
+    # the binary stage-1 candidates of batch 0 (fp16-rounded queries, as
+    # the sketch route packs them): kernel == plain version on the same
+    # device tensors for the first 256 queries
+    def packed(q):
+        return qz.pack_binary(torch.from_numpy(q.astype(np.float16).astype(np.float32)).cuda())
+
+    qwords = packed(queries[:BATCH])
+    kc = int(round(fused_depth * mult))
+    got = ck.hamming_scan_topk(eng.codes, qwords[:256], eng.valid, kc)
+    torch.cuda.synchronize()
+    same(got, ck.hamming_scan_topk_reference(eng.codes, qwords[:256], eng.valid, kc))
+    log(f"preset stage 1: kernel == plain version for 256 queries at kc={kc}")
+
+    # recall: the dense leg against the exact fp32 top-10, and against what
+    # a binary stage 1 allows: the plain version's candidates over the
+    # witness's words, rescored exactly in fp32. The top-60 prefix of the
+    # kc-360 candidates is the kc-60 candidate set (one total order), which
+    # retrieve_by_embedding_batch (top_k 10 x 6.0) scans.
+    def allowed_recall(q, exact, depths):
+        _, cand = ck.hamming_scan_topk_reference(hwords, packed(q), None, max(depths))
+        return {c: recall_at_10(stage1_rescored_top10(vecs, q, cand[:, :c]), exact)
+                for c in depths}
+
+    exact0 = exact_top10(vecs, queries[:BATCH])
+    recall = recall_at_10(res[0]["dense"][1], exact0)
+    hit_rows = np.full((BATCH, TOP_K), -1, np.int64)
+    for i, h in enumerate(hits):
+        for j, (doc, _s) in enumerate(h):
+            hit_rows[i, j] = store.row_of(doc.doc_id)
+    recall_store = recall_at_10(hit_rows, exact0)
+    allowed = allowed_recall(queries[:BATCH], exact0, (kc, TOP_K * int(mult)))
+    log(f"preset dense recall@10 vs exact fp32: {recall:.4f} (search_rows, kc {kc}; "
+        f"stage 1 + exact rescore allows {allowed[kc]:.4f}), {recall_store:.4f} "
+        f"(retrieve_by_embedding_batch, kc {TOP_K * int(mult)}; allows "
+        f"{allowed[TOP_K * int(mult)]:.4f})")
+    exact_low = exact_top10(vecs, qlow)
+    recall_low = recall_at_10(reslow["dense"][1], exact_low)
+    allowed_low = allowed_recall(qlow, exact_low, (kc,))[kc]
+    log(f"preset dense recall@10 at query noise {LOW_NOISE}: {recall_low:.4f} (search_rows, "
+        f"kc {kc}; stage 1 + exact rescore allows {allowed_low:.4f})")
+    check(recall >= allowed[kc] - 0.01 and recall_store >= allowed[TOP_K * int(mult)] - 0.01,
+          "the int8 rescore loses more than 0.01 recall@10 against an exact rescore")
+    check(recall_low >= MIN_LOW_NOISE_RECALL,
+          f"recall@10 {recall_low} at query noise {LOW_NOISE} < {MIN_LOW_NOISE_RECALL}")
+    check(allowed[kc] >= 0.2, f"binary stage 1 keeps too few neighbours: {allowed[kc]}")
+    del hwords
+
+    # the sketch leg's kernel at its own shape (S = 512, k = 360)
+    tb = qtexts[:BATCH]
+    qind = torch.from_numpy(bm.make_query_indicator(tb, bm.query_tids(tb))).cuda()
+    row = scan_rows(ck, "preset sketch S=512 k=360", bm._sketch, qind, eng.valid.clone(), kc)
+    tmp.cleanup()
+    return [row]
 
 
 if __name__ == "__main__":

@@ -1,0 +1,213 @@
+"""Configuration of the retrieval slice: the four sections it reads.
+
+The port's own copy of `IndexConfig`, `QuantizationConfig`, `BM25Config` and
+`RetrievalConfig` from `radiant_rag_tpu/config.py`, with the same fields,
+defaults, coercion of YAML values and validation, so a YAML file gives the
+two packages equal sections. `AppConfig` holds just these four.
+
+Three deviations from the JAX package's `load_config`:
+  * it raises when the file is missing, PyYAML is missing or the file does
+    not parse; the JAX package warns and serves the defaults, which would
+    silently run another configuration;
+  * for the same reason a field the port parses but has no behaviour for
+    (`_NOT_PORTED`) raises `NotImplementedError` on any value but its
+    default, naming the ROADMAP item that brings it, or saying that neither
+    package reads it;
+  * it reads no `RADIANT_*` environment overrides yet (ROADMAP).
+
+One rule of the other sections is kept because it sets `index.dim`: the
+JAX package's `embedding.preset` ("auto" resolves to "trainable-small" for a
+weightless jax embedder) makes `index.dim` follow the embedding width (128
+unless `embedding.dim` is given) when `index.dim` is not pinned.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, field, fields
+from typing import Any, Dict, Optional
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass(frozen=True)
+class IndexConfig:
+    """Device-resident vector index."""
+
+    backend: str = "tpu"  # tpu | numpy (host parity backend)
+    dim: int = 384
+    metric: str = "cosine"
+    dtype: str = "float32"  # storage dtype of full-precision vectors
+    initial_capacity: int = 4096
+    growth_factor: float = 2.0
+    graph_degree: int = 16
+    graph_ef_construction: int = 200
+    graph_ef_runtime: int = 100
+    use_graph: bool = False
+    # memory tier: no fp32 vectors on the device, the rescore dequantizes int8
+    store_fp32: bool = True
+    # the JAX package's opt-in Pallas int8 stage 1; the port runs that
+    # kernel's counterpart for either value (exact selection, as every
+    # stage1_select policy does in the port: ROADMAP "Stage-1 select")
+    use_pallas_scan: bool = False
+    stage1_select: str = ""  # "" | f32 | bf16 | bf16_chunked | blockmax
+    data_dir: str = "./data/index"
+    auto_persist: bool = True
+    docstore: str = "memory"  # memory | spill (spill: ROADMAP A10)
+    docstore_cache_docs: int = 50_000
+
+
+@dataclass(frozen=True)
+class QuantizationConfig:
+    """Binary / int8 quantization."""
+
+    enabled: bool = True
+    precision: str = "both"  # binary | int8 | both
+    rescore_multiplier: float = 4.0
+    use_rescoring: bool = True
+    int8_ranges_path: str = ""  # optional .npy calibration artifact
+    int8_on_disk_only: bool = False
+
+    def validate(self) -> None:
+        if self.precision not in ("binary", "int8", "both"):
+            raise ValueError(f"invalid quantization precision: {self.precision}")
+        if self.rescore_multiplier < 1.0:
+            raise ValueError("rescore_multiplier must be >= 1.0")
+
+
+@dataclass(frozen=True)
+class BM25Config:
+    """BM25 parameters, the impact sketch and the router's cost gate."""
+
+    k1: float = 1.5
+    b: float = 0.75
+    index_path: str = "./data/bm25_index.json.gz"
+    auto_save_threshold: int = 100
+    max_query_terms: int = 32
+    max_postings_per_query: int = 1 << 18
+    sketch_dim: int = 1024  # 0 disables the sketch route
+    sketch_hbm_budget_gb: float = 3.0
+    disc_route_df_frac: float = 0.01
+    pages_route_max_pages: int = 4096
+    pages_route_max_cells: int = 1 << 30
+    persist_max_docs: int = 200000  # above: no JSON, rebuild from the store
+    auto_build: bool = True
+
+
+@dataclass(frozen=True)
+class RetrievalConfig:
+    """Retrieval defaults."""
+
+    dense_top_k: int = 10
+    bm25_top_k: int = 10
+    fused_top_k: int = 15
+    rrf_k: int = 60
+    min_similarity: float = 0.0
+    search_scope: str = "leaves"  # leaves | parents | all
+    retrieval_mode: str = "hybrid"  # hybrid | dense | bm25
+    fusion_weighting: str = "auto"
+    fused_depth: int = -1  # -1 = 4 x fused_top_k; 0 = off
+    calibration_probes: int = 128
+    calibration_paraphrase_fraction: float = 0.5
+    calibration_seeds: int = 2
+
+
+@dataclass(frozen=True)
+class AppConfig:
+    """The sections the retrieval slice reads."""
+
+    index: IndexConfig = field(default_factory=IndexConfig)
+    quantization: QuantizationConfig = field(default_factory=QuantizationConfig)
+    bm25: BM25Config = field(default_factory=BM25Config)
+    retrieval: RetrievalConfig = field(default_factory=RetrievalConfig)
+
+
+_SECTIONS = {"index": IndexConfig, "quantization": QuantizationConfig, "bm25": BM25Config,
+             "retrieval": RetrievalConfig}
+_NEITHER = "read by neither package"
+_GRAPH = "the graph engine, ROADMAP queue A item 10"
+_APP = "read by the app and agent layers, ROADMAP queue A item 11"
+_CALIBRATE = "HybridSearcher.calibrate_fusion, ROADMAP queue A item 7"
+# Fields parsed for parity that the port has no behaviour for: a value
+# other than the default raises, with the reason.
+_NOT_PORTED = {
+    "index": {"metric": _NEITHER + " (cosine only)",
+              "growth_factor": _NEITHER + " (the engine grows by CAPACITY_QUANTUM)",
+              "graph_degree": _GRAPH, "graph_ef_construction": _GRAPH,
+              "docstore_cache_docs": "the spill docstore, ROADMAP queue A item 10"},
+    "quantization": {"int8_on_disk_only": _NEITHER},
+    "retrieval": {"search_scope": _APP, "retrieval_mode": _APP, "fusion_weighting": _APP,
+                  "calibration_probes": _CALIBRATE,
+                  "calibration_paraphrase_fraction": _CALIBRATE,
+                  "calibration_seeds": _CALIBRATE},
+}
+_TRAINABLE_SMALL_DIM = 128  # the JAX package's "trainable-small" embedding width
+
+
+def _coerce(value: Any, ftype: type) -> Any:
+    """A YAML value as a field's type (the JAX package's rules for these)."""
+    if ftype is bool:
+        if isinstance(value, bool):
+            return value
+        return str(value).strip().lower() in ("1", "true", "yes", "on")
+    return ftype(value)
+
+
+def _section(cls: type, data: Dict[str, Any], name: str) -> Any:
+    types = {"bool": bool, "int": int, "float": float, "str": str}
+    kwargs = {f.name: _coerce(data[f.name], types[f.type])
+              for f in fields(cls) if f.name in data}
+    unknown = set(data) - {f.name for f in fields(cls)}
+    if unknown:
+        logger.warning("config section %s: unknown keys ignored: %s", name, sorted(unknown))
+    section = cls(**kwargs)
+    for key, reason in _NOT_PORTED.get(name, {}).items():
+        if getattr(section, key) != getattr(cls, key):
+            raise NotImplementedError(f"config {name}.{key}={getattr(section, key)!r}: the "
+                                      f"port has no behaviour for it; {reason}")
+    return section
+
+
+def _preset_index_dim(data: Dict[str, Any]) -> Optional[int]:
+    """index.dim as the JAX package's embedding preset sets it, or None."""
+    emb = data.get("embedding") or {}
+    preset = str(emb.get("preset", "auto"))
+    if preset == "auto":
+        weightless_jax = (str(emb.get("backend", "jax")) == "jax"
+                          and not str(emb.get("weights_path", "")))
+        preset = "trainable-small" if weightless_jax else "none"
+    if preset != "trainable-small" or "dim" in (data.get("index") or {}):
+        return None
+    return int(emb.get("dim", _TRAINABLE_SMALL_DIM))
+
+
+def config_from_dict(data: Optional[Dict[str, Any]]) -> AppConfig:
+    """AppConfig from a parsed YAML document: defaults, then the file's
+    values; other sections are read only for the embedding preset's
+    index.dim rule (module doc)."""
+    data = data or {}
+    sections = {name: _section(cls, data.get(name) or {}, name)
+                for name, cls in _SECTIONS.items()}
+    dim = _preset_index_dim(data)
+    if dim is not None:
+        sections["index"] = IndexConfig(**{**sections["index"].__dict__, "dim": dim})
+    cfg = AppConfig(**sections)
+    cfg.quantization.validate()
+    return cfg
+
+
+def load_config(path: str) -> AppConfig:
+    """AppConfig from a YAML file. Raises when the file is missing or does
+    not parse, and when PyYAML is not installed: a configuration that
+    cannot be read is never replaced by the defaults."""
+    try:
+        import yaml
+    except ImportError as exc:
+        raise RuntimeError(f"load_config({path!r}) needs PyYAML, which is not installed; "
+                           "build the configuration with config_from_dict") from exc
+    with open(path) as fh:
+        data = yaml.safe_load(fh)
+    if data is not None and not isinstance(data, dict):
+        raise ValueError(f"{path}: a configuration is a mapping of sections, "
+                         f"got {type(data).__name__}")
+    return config_from_dict(data)

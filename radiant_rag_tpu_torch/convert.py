@@ -4,6 +4,10 @@ Builds the port's `DeviceVectorIndex` and `BM25Index` directly from the
 arrays a JAX-package index holds (given as numpy arrays), without running
 the port's own build: the port then searches exactly the tables the JAX
 package built, which holds search semantics apart from build semantics.
+
+A directory the JAX package's `TpuVectorStore.save` wrote needs no
+conversion: the port's store reads the same format (`store_from_jax_dir`),
+as `PersistentBM25Index` reads the JAX package's gzip-JSON BM25 file.
 """
 
 from __future__ import annotations
@@ -13,8 +17,10 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from radiant_rag_tpu_torch.config import IndexConfig, QuantizationConfig
 from radiant_rag_tpu_torch.index.bm25 import BM25Index
 from radiant_rag_tpu_torch.index.engine import DeviceVectorIndex
+from radiant_rag_tpu_torch.index.store import TpuVectorStore
 
 
 def _dev(a: np.ndarray, device: torch.device, dtype=None) -> torch.Tensor:
@@ -99,3 +105,12 @@ def bm25_from_jax_state(*, terms: Sequence[str], df: Sequence[int],
         bm._dm_width = bm.doc_major_width = int(dm_tids.shape[1])
         bm._dm_dirty = False
     return bm
+
+
+def store_from_jax_dir(path: str, index_config: Optional[IndexConfig] = None,
+                       quantization: Optional[QuantizationConfig] = None,
+                       device=None) -> TpuVectorStore:
+    """The port's store over a directory the JAX package's store saved
+    (`docs/` segments, `engine.npz`, `manifest.json`)."""
+    return TpuVectorStore.load(path, index_config=index_config, quantization=quantization,
+                               device=device)

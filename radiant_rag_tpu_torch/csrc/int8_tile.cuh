@@ -5,9 +5,10 @@
 // one 16-byte shared-memory read feeds eight dp4a.
 #pragma once
 
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "topk_list.cuh"
 
 namespace rr {
 
@@ -17,8 +18,9 @@ constexpr int THREADS = 256;  // 8 warps: warp = query group, lane = row
 constexpr int PAD = 16;       // bytes added to each shared row: with a row
                               // stride of D + 16 the lanes' 16-byte reads
                               // fall on distinct banks
-constexpr int SCORE_NONE = INT_MIN;  // masked row / empty slot
-constexpr float NEG = -3.0e38f;      // score of an empty output slot
+constexpr int SCORE_NONE = LIST_NONE;  // masked row / empty slot
+constexpr float NEG = LIST_NEG;        // score of an empty output slot
+static_assert(QB == LIST_QB && TILE == LIST_TILE, "the scan tile feeds topk_list.cuh");
 
 __host__ __device__ constexpr size_t tile_smem_bytes(int d) {
   return size_t(QB) * d + size_t(TILE) * (d + PAD) + size_t(QB) * TILE * 4 + TILE;
@@ -88,22 +90,6 @@ __device__ inline void score_tile(const int8_t* s_q, const int8_t* s_c,
     s_score[q * TILE + tr] = s_valid[tr] ? acc[j][0] : SCORE_NONE;
     s_score[q * TILE + tr + 32] = s_valid[tr + 32] ? acc[j][1] : SCORE_NONE;
   }
-}
-
-// Total order of the selection: score descending, then row ascending. The
-// 64-bit key is larger for a better entry; 0 is an empty slot.
-__device__ inline unsigned long long order_key(int score, unsigned row) {
-  if (score == SCORE_NONE) return 0ull;
-  return (static_cast<unsigned long long>(static_cast<unsigned>(score) ^ 0x80000000u) << 32) |
-         static_cast<unsigned long long>(0xFFFFFFFFu - row);
-}
-
-__device__ inline int key_score(unsigned long long key) {
-  return static_cast<int>(static_cast<unsigned>(key >> 32) ^ 0x80000000u);
-}
-
-__device__ inline int key_row(unsigned long long key) {
-  return static_cast<int>(0xFFFFFFFFu - static_cast<unsigned>(key & 0xFFFFFFFFull));
 }
 
 }  // namespace rr

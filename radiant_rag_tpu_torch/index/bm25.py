@@ -9,24 +9,32 @@ arrays are torch tensors on the index's `device`; the host build is numpy
 and runs the same code as the JAX package, so both build identical tables
 from the same texts.
 
-Not here yet (ROADMAP): `PersistentBM25Index`, `to_dict`/`from_dict` and
-the standalone `search_rows(_batch)`; the hybrid searcher is this slice's
-query path.
+Also here: the standalone `search_rows(_batch)` (auto-routed sketch or
+pages), the v3 `to_dict`/`from_dict` and `PersistentBM25Index`, which keeps
+the index in the JAX package's gzip-JSON file (keyed by doc id, so either
+package loads the other's file) and builds it from a vector store.
 """
 
 from __future__ import annotations
 
 import array
+import gzip
+import json
 import logging
 import math
+import os
 import re
+import threading
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from radiant_rag_tpu_torch import resolve_device
-from radiant_rag_tpu_torch.ops.bm25 import PAGE_SIZE
+from radiant_rag_tpu_torch.ops.bm25 import (
+    PAGE_SIZE, bm25_pages_score_topk, bm25_sketch_rescore_topk,
+)
 from radiant_rag_tpu_torch.utils.hashing import stable_hash32
 
 logger = logging.getLogger(__name__)
@@ -662,3 +670,326 @@ class BM25Index:
             qidx[: len(qidx_l)] = qidx_l
             idf[: len(idf_l)] = idf_l
         return {"start": start, "len": plen, "qidx": qidx, "idf": idf}
+
+    # -- search ------------------------------------------------------------
+    def search_rows(self, query: str, top_k: int = 10,
+                    valid_mask: Optional[torch.Tensor] = None,
+                    num_rows: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """Returns (scores (k,), rows (k,) int64; -1 padding)."""
+        s, r = self.search_rows_batch([query], top_k, valid_mask, num_rows)
+        return s[0], r[0]
+
+    def search_rows_batch(self, queries: Sequence[str], top_k: int = 10,
+                          valid_mask: Optional[torch.Tensor] = None,
+                          num_rows: Optional[int] = None, method: str = "auto",
+                          rescore_multiplier: float = 4.0) -> Tuple[np.ndarray, np.ndarray]:
+        """Batched BM25: method "pages" is exact within the per-query posting
+        budget; "sketch" scans the signed impact sketch and rescores the
+        top-(k x rescore_multiplier) candidates exactly; "auto" routes like
+        `routes_pages`. Returns (scores (B, k), rows (B, k) int64, -1 pad)."""
+        from radiant_rag_tpu_torch.index.engine import _round_capacity
+
+        bq = len(queries)
+        if self.num_docs == 0:
+            return (np.full((bq, top_k), -1e30, np.float32),
+                    np.full((bq, top_k), -1, np.int64))
+        # standalone default: round like the engine rounds its capacity, so
+        # the doc-length table never outgrows a hybrid searcher's row space
+        n_rows = num_rows or _round_capacity(max(max(self.doc_lens) + 1, 1))
+        if valid_mask is not None:
+            n_rows = max(n_rows, int(valid_mask.shape[0]))
+        self._device_doc_lens(n_rows)
+        n_rows = self._dl_size
+        dl = self._dl_dev
+        self._finalize_csr()
+        self.plan_hbm(n_rows)  # may disable the sketch tier at scale
+        tids_list = self.query_tids(queries)
+        mask = valid_mask
+        if mask is not None and int(mask.shape[0]) < n_rows:
+            mask = torch.cat([mask, mask.new_zeros((n_rows - int(mask.shape[0]),))])
+        if method == "auto":
+            method = ("pages" if self.sketch_dim <= 0
+                      or self.routes_pages(queries, tids_list, num_docs=n_rows) else "sketch")
+        if method == "sketch" and self.sketch_dim <= 0:
+            method = "pages"  # the HBM plan serves pages only at this size
+        dev = self.device
+        avgdl = torch.tensor(self.avgdl, dtype=torch.float32, device=dev)
+        k_eff = min(top_k, n_rows)
+        if method == "sketch":
+            self.ensure_sketch(n_rows)
+            self.ensure_doc_major(n_rows)
+            qind = self.make_query_indicator(queries, tids_list)
+            q_tids, q_idfs = self.make_query_terms(queries, tids=tids_list)
+            kc = min(max(k_eff, int(round(k_eff * rescore_multiplier))), n_rows)
+            top_s, top_i = bm25_sketch_rescore_topk(
+                self._sketch, self._sketch_scale, torch.from_numpy(qind).to(dev),
+                self._dm_tids, self._dm_tfs, dl, avgdl, torch.from_numpy(q_tids).to(dev),
+                torch.from_numpy(q_idfs).to(dev), mask, k_eff, kc, self.k1, self.b)
+        else:
+            pages = {key: torch.from_numpy(v).to(dev)
+                     for key, v in self.make_pages(queries, tids_list).items()}
+            top_s, top_i = bm25_pages_score_topk(
+                self._dev_post_rows, self._dev_post_tf, pages["start"], pages["len"],
+                pages["qidx"], pages["idf"], dl, avgdl, mask, bq, n_rows, k_eff,
+                self.k1, self.b)
+        scores = top_s.cpu().numpy()
+        rows_out = top_i.cpu().numpy().astype(np.int64)
+        if scores.shape[1] < top_k:
+            pad = top_k - scores.shape[1]
+            scores = np.pad(scores, ((0, 0), (0, pad)), constant_values=-1e30)
+            rows_out = np.pad(rows_out, ((0, 0), (0, pad)), constant_values=-1)
+        return scores, rows_out
+
+    # -- serialization -----------------------------------------------------
+    def to_dict(self) -> Dict:
+        """v3 format: per-row (term, tf) pairs + length; stats rebuilt on load."""
+        return {"version": 3, "k1": self.k1, "b": self.b,
+                "docs": {str(row): self.doc_payload(row) for row in self.doc_terms}}
+
+    @classmethod
+    def from_dict(cls, data: Dict, **kwargs) -> "BM25Index":
+        idx = cls(k1=float(data.get("k1", 1.5)), b=float(data.get("b", 0.75)), **kwargs)
+        for row, payload in data.get("docs", {}).items():
+            idx._add_payload(int(row), payload)
+        return idx
+
+    def _add_payload(self, row: int, payload) -> None:
+        if isinstance(payload, dict):  # v3
+            self.add_document_counts(row, [(t, int(tf)) for t, tf in payload["t"]],
+                                     int(payload["l"]))
+        else:  # v2 token lists
+            self.add_document(row, list(payload))
+
+    def doc_payload(self, row: int) -> Optional[Dict]:
+        """Persistence payload of one row."""
+        pairs = self.doc_terms.get(row)
+        if pairs is None:
+            return None
+        return {"l": self.doc_lens[row], "t": [[self.terms[tid], tf] for tid, tf in pairs]}
+
+    def settings(self) -> Dict:
+        """Constructor arguments that carry over to a rebuilt index."""
+        return {"max_query_terms": self.max_query_terms, "max_postings": self.max_postings,
+                "sketch_dim": self._sketch_dim_cfg,
+                "pages_route_threshold": self.pages_route_threshold,
+                "sketch_hbm_budget_gb": self.sketch_hbm_budget_gb,
+                "disc_route_df_frac": self.disc_route_df_frac,
+                "pages_route_max_pages": self.pages_route_max_pages,
+                "pages_route_max_cells": self.pages_route_max_cells, "device": self.device}
+
+    def get_stats(self) -> Dict:
+        return {"num_docs": self.num_docs, "num_terms": len(self.terms),
+                "total_postings": int(self._base_start[-1]) + len(self.delta),
+                "avgdl": self.avgdl, "removed_pending": len(self.removed)}
+
+
+class PersistentBM25Index:
+    """Thread-safe persistent wrapper: lazy load, atomic gzip-JSON save,
+    auto-save threshold, store sync. The file is keyed by doc_id (rows are
+    resolved through the store at load time), in the JAX package's v3
+    format. Unlike the JAX package, a file that fails to load raises instead
+    of leaving an empty index in its place."""
+
+    def __init__(self, store, path: str = "./data/bm25_index.json.gz",
+                 k1: float = 1.5, b: float = 0.75, auto_save_threshold: int = 100,
+                 persist_max_docs: int = 200000, auto_build: bool = True, **kwargs) -> None:
+        self.store = store
+        self.path = path
+        self.auto_save_threshold = auto_save_threshold
+        self.persist_max_docs = persist_max_docs
+        self.auto_build = auto_build
+        self._lock = threading.RLock()
+        self._index = BM25Index(k1=k1, b=b, **kwargs)
+        self._loaded = False
+        self._dirty_adds = 0
+
+    @classmethod
+    def from_config(cls, store, bm25_cfg, device=None, path: Optional[str] = None
+                    ) -> "PersistentBM25Index":
+        """The BM25 leg as the JAX package's app builds it from its `bm25`
+        config section (path defaults to bm25_cfg.index_path)."""
+        c = bm25_cfg
+        return cls(store, path=path or c.index_path, k1=c.k1, b=c.b,
+                   auto_save_threshold=c.auto_save_threshold,
+                   max_query_terms=c.max_query_terms, max_postings=c.max_postings_per_query,
+                   persist_max_docs=c.persist_max_docs, auto_build=c.auto_build,
+                   sketch_dim=c.sketch_dim, sketch_hbm_budget_gb=c.sketch_hbm_budget_gb,
+                   disc_route_df_frac=c.disc_route_df_frac,
+                   pages_route_max_pages=c.pages_route_max_pages,
+                   pages_route_max_cells=c.pages_route_max_cells, device=device)
+
+    @property
+    def index(self) -> BM25Index:
+        """The live inner index (loads or builds on first access). Load and
+        build replace the inner object: resolve through this property."""
+        with self._lock:
+            self._ensure_loaded()
+            return self._index
+
+    def _fresh(self, k1: float, b: float) -> BM25Index:
+        return BM25Index(k1=k1, b=b, **self._index.settings())
+
+    def _store_has_docs(self) -> bool:
+        return bool(self.store.list_doc_ids_with_embeddings())
+
+    # -- lifecycle ---------------------------------------------------------
+    def _ensure_loaded(self, auto_build: bool = True) -> None:
+        if self._loaded:
+            return
+        self._loaded = True
+        p = Path(self.path)
+        build = auto_build and self.auto_build
+        if not p.is_file():
+            # no file: the statistics derive from the store (also the load
+            # path above persist_max_docs, whose file is never written)
+            if build and self._store_has_docs():
+                self._build_from_store_locked()
+            return
+        with gzip.open(p, "rt", encoding="utf-8") as fh:
+            data = json.load(fh)
+        docs = data.get("docs", {})
+        if not docs and "doc_ids" in data:  # v1/v2: parallel id / token lists
+            docs = dict(zip(data.get("doc_ids", []), data.get("doc_tokens", [])))
+        idx = self._fresh(float(data.get("k1", self._index.k1)),
+                          float(data.get("b", self._index.b)))
+        resolved = 0
+        for key, payload in docs.items():
+            row = self.store.row_of(key) if hasattr(self.store, "row_of") else None
+            if row is not None:
+                idx._add_payload(row, payload)
+                resolved += 1
+        self._index = idx
+        logger.info("loaded BM25 index from %s (%d/%d docs resolved)", p, resolved, len(docs))
+        if resolved == 0 and build and self._store_has_docs():
+            logger.info("BM25 file resolved 0 docs against a non-empty store; rebuilding")
+            self._build_from_store_locked()
+
+    def save(self) -> None:
+        with self._lock:
+            self._ensure_loaded()
+            if self._index.num_docs > self.persist_max_docs:
+                logger.info("BM25 persistence skipped (%d docs > persist_max_docs=%d); the "
+                            "index rebuilds from the store on load", self._index.num_docs,
+                            self.persist_max_docs)
+                self._dirty_adds = 0
+                return
+            p = Path(self.path)
+            p.parent.mkdir(parents=True, exist_ok=True)
+            row_to_id = getattr(self.store, "id_for_row", None)
+            docs = {}
+            for row in self._index.doc_terms:
+                key = row_to_id(row) if row_to_id else str(row)
+                if key is not None:
+                    docs[key] = self._index.doc_payload(row)
+            payload = {"version": 3, "k1": self._index.k1, "b": self._index.b, "docs": docs}
+            tmp = str(p) + ".tmp"
+            with gzip.open(tmp, "wt", encoding="utf-8") as fh:
+                json.dump(payload, fh)
+            os.replace(tmp, str(p))
+            self._dirty_adds = 0
+
+    # -- mutation ----------------------------------------------------------
+    def add_document(self, doc_id: str, text: str) -> bool:
+        with self._lock:
+            self._ensure_loaded()
+            row = self.store.row_of(doc_id)
+            if row is None:
+                return False
+            self._index.add_document(row, text)
+            self._dirty_adds += 1
+            if self._dirty_adds >= self.auto_save_threshold:
+                self.save()
+            return True
+
+    def remove_document(self, doc_id: str) -> bool:
+        with self._lock:
+            self._ensure_loaded()
+            row = self.store.row_of(doc_id)
+            if row is None:
+                return False
+            return self._index.remove_document(row)
+
+    def build_from_store(self) -> int:
+        """Full rebuild from the vector store in one native bulk pass."""
+        with self._lock:
+            self._loaded = True  # building is the load
+            return self._build_from_store_locked()
+
+    def _build_from_store_locked(self) -> int:
+        rows: List[int] = []
+        texts: List[str] = []
+        for doc_id in self.store.list_doc_ids_with_embeddings():
+            doc = self.store.get_doc(doc_id)
+            row = self.store.row_of(doc_id)
+            if doc is not None and row is not None:
+                rows.append(row)
+                texts.append(doc.content)
+        self._index = self._fresh(self._index.k1, self._index.b)
+        self._index.bulk_build(rows, texts)
+        self.save()
+        return len(rows)
+
+    def sync_with_store(self) -> Tuple[int, int]:
+        """Diff against the store's ids: add new rows, remove stale ones.
+        Returns (added, removed)."""
+        with self._lock:
+            self._ensure_loaded(auto_build=False)  # sync adds; a build would not count
+            store_rows = {}
+            for doc_id in self.store.list_doc_ids_with_embeddings():
+                row = self.store.row_of(doc_id)
+                if row is not None:
+                    store_rows[row] = doc_id
+            indexed = set(self._index.doc_lens.keys())
+            removed = 0
+            for row in indexed - set(store_rows):
+                self._index.remove_document(row)
+                removed += 1
+            new_rows: List[int] = []
+            new_texts: List[str] = []
+            for row, doc_id in store_rows.items():
+                if row not in indexed:
+                    doc = self.store.get_doc(doc_id)
+                    if doc is not None:
+                        new_rows.append(row)
+                        new_texts.append(doc.content)
+            if new_rows:
+                if not indexed and not removed:
+                    self._index.bulk_build(new_rows, new_texts)  # fresh: native path
+                else:
+                    for row, text in zip(new_rows, new_texts):
+                        self._index.add_document(row, text)
+            added = len(new_rows)
+            if added or removed:
+                self.save()
+            return added, removed
+
+    # -- search ------------------------------------------------------------
+    def search(self, query: str, top_k: int = 10):
+        return self.search_batch([query], top_k)[0]
+
+    def search_batch(self, queries: Sequence[str], top_k: int = 10):
+        """[(StoredDoc, score)] per query, over the store's live rows."""
+        with self._lock:
+            self._ensure_loaded()
+            valid = getattr(self.store, "valid_mask", None)
+            num_rows = getattr(self.store, "row_capacity", None)
+            scores, rows = self._index.search_rows_batch(
+                queries, top_k, valid_mask=valid() if callable(valid) else valid,
+                num_rows=num_rows() if callable(num_rows) else num_rows)
+        out = []
+        for qi in range(len(queries)):
+            hits = []
+            for s, r in zip(scores[qi], rows[qi]):
+                if r < 0 or s <= 0:
+                    continue
+                doc_id = self.store.id_for_row(int(r))
+                doc = None if doc_id is None else self.store.get_doc(doc_id)
+                if doc is not None:
+                    hits.append((doc, float(s)))
+            out.append(hits)
+        return out
+
+    def get_stats(self) -> Dict:
+        with self._lock:
+            self._ensure_loaded()
+            return self._index.get_stats()

@@ -4,8 +4,8 @@ Counterpart of `radiant_rag_tpu/index/engine.py`. The corpus lives on the
 device as
 
   vecs    (cap, D)  f32   L2-normalized embeddings (rescore + exact path)
-  codes   (cap, W)  i32   packed sign bits (the binary stage 1; stored so the
-                          Hamming kernel is all a later slice adds)
+  codes   (cap, W)  i32   packed sign bits (binary Hamming stage 1), the JAX
+                          package's uint32 words bit for bit
   i8      (cap, D)  int8  calibrated affine codes (int8 stage 1)
   valid   (cap,)    bool  live-row mask (deletes are a mask)
   level   (cap,)    int8  doc_level code
@@ -16,9 +16,11 @@ Rows are append-only with capacity growth. Where the JAX package wrote row
 slabs with a donated `dynamic_update_slice`, the port writes the slab in
 place into the preallocated tensors.
 
-Modes: "exact" (fp32 scan) and "int8" (two-stage, stage 1 in the fused CUDA
-scan -> top-k kernel). "binary" and "graph" raise NotImplementedError until
-their ROADMAP items land.
+Modes: "exact" (fp32 scan), "binary" (two-stage, stage 1 in the fused
+Hamming scan -> top-k kernel; the JAX package's default) and "int8"
+(two-stage, stage 1 in the fused int8 scan -> top-k kernel). Both two-stage
+modes rescore in fp32, or from dequantized int8 in fp32-free mode. "graph"
+raises NotImplementedError until its ROADMAP item lands.
 """
 
 from __future__ import annotations
@@ -43,9 +45,10 @@ CAPACITY_QUANTUM = 1 << 16
 # programs materialized a (B, N) stage-1 score buffer per leg; it capped one
 # such transient at 9 GiB (SCORE_BYTES_CAP) and auto-selected a bf16 or
 # chunked selection as capacity grew. On the H100 (80 GB):
-#  - the int8 stage 1 of both legs is the fused scan -> top-k kernel, which
-#    holds no (B, N) buffer, so no select policy trades memory for speed
-#    and the default policy is the fused kernel at every capacity;
+#  - the int8 stage 1 of both legs and the binary stage 1 are fused scan ->
+#    top-k kernels, which hold no (B, N) buffer, so no select policy trades
+#    memory for speed and the default policy is the fused kernel at every
+#    capacity;
 #  - the only (B, N) transients left are the exact path and the BM25 pages
 #    route: an f32 score matrix, its masked copy and the int64 order keys
 #    of `similarity.topk_first`, 24 bytes per cell at the peak;
@@ -262,15 +265,14 @@ class DeviceVectorIndex:
         qvalid[:b] = True
         return to_device(qpad, self.device), to_device(qvalid, self.device), b
 
-    def search(self, queries: np.ndarray, k: int, mode: str = "int8",
+    def search(self, queries: np.ndarray, k: int, mode: str = "binary",
                rescore_multiplier: float = 4.0, ef_runtime: Optional[int] = None,
                level_code: int = -1, lang_code: int = -1
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Returns (scores (B, k) f32, rows (B, k) int64; -1 = no result)."""
-        if mode in ("binary", "graph"):
+        if mode == "graph":
             raise NotImplementedError(
-                f"mode={mode!r} is not ported yet: ROADMAP queue B items 3-4 (Hamming "
-                "kernels) and queue A item 10 (graph engine)")
+                "mode='graph' is not ported yet: ROADMAP queue A item 10 (graph engine)")
         if self.count == 0:
             b = queries.shape[0]
             return np.full((b, k), -1e30, np.float32), np.full((b, k), -1, np.int64)
@@ -292,10 +294,8 @@ class DeviceVectorIndex:
         mask = row_mask(self.valid, self.level, self.lang, level_code, lang_code)
         if mode == "exact":
             top_s, top_i = sim.exact_topk(self.vecs, qdev, mask, k_eff)
-        elif mode == "int8":
-            top_s, top_i = sim.two_stage_topk(
-                self.vecs, qdev, mask, k_eff, kc, "int8", self.i8,
-                *qz.int8_scale_offset(self.i8_lo, self.i8_hi), select=self.stage1_select)
+        elif mode in ("binary", "int8"):
+            top_s, top_i = self.two_stage(qdev, mask, k_eff, kc, mode, self.stage1_select)
         else:
             raise ValueError(f"unknown search mode: {mode}")
         top_i = torch.where(top_s > sim.NEG_INF / 2, top_i, -1)
@@ -306,6 +306,20 @@ class DeviceVectorIndex:
             scores = np.pad(scores, ((0, 0), (0, k - k_eff)), constant_values=-1e30)
             rows = np.pad(rows, ((0, 0), (0, k - k_eff)), constant_values=-1)
         return scores, rows
+
+    def two_stage(self, queries: torch.Tensor, mask: torch.Tensor, k: int, kc: int,
+                  mode: str, select: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The two-stage program over this corpus: stage 1 "binary" (the
+        queries' sign words against the stored ones) or "int8"."""
+        scale, offset = qz.int8_scale_offset(self.i8_lo, self.i8_hi)
+        if mode == "binary":
+            return sim.two_stage_topk(
+                self.vecs, queries, mask, k, kc, "hamming", binary_codes=self.codes,
+                qbinary=qz.pack_binary(queries), int8_codes=self.i8, int8_scale=scale,
+                int8_offset=offset, select=select)
+        return sim.two_stage_topk(
+            self.vecs, queries, mask, k, kc, "int8", int8_codes=self.i8, int8_scale=scale,
+            int8_offset=offset, select=select)
 
     # -- stats / persistence ----------------------------------------------
     def memory_bytes(self) -> Dict[str, int]:

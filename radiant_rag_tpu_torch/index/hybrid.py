@@ -1,8 +1,9 @@
-"""Hybrid retrieval: dense int8 two-stage + BM25 (sketch or pages) + RRF.
+"""Hybrid retrieval: dense two-stage + BM25 (sketch or pages) + RRF.
 
 Counterpart of `HybridSearcher` in `radiant_rag_tpu/index/hybrid.py`. A batch
 runs as one sequence of device work on the engine's device: the dense leg
-(stage 1 in the fused scan -> top-k kernel, fp32 rescore), the BM25 leg,
+(stage 1 in a fused scan -> top-k kernel, binary Hamming or int8; rescore
+in fp32, or from dequantized int8 without fp32 vectors), the BM25 leg,
 fusion, and one device->host fetch of the six packed result blocks.
 
 BM25 routes, chosen per batch by `BM25Index.routes_pages` under "auto":
@@ -28,7 +29,6 @@ import torch
 from radiant_rag_tpu_torch import to_device
 from radiant_rag_tpu_torch.index.bm25 import BM25Index
 from radiant_rag_tpu_torch.index.engine import DeviceVectorIndex, row_mask
-from radiant_rag_tpu_torch.ops import quantize as qz
 from radiant_rag_tpu_torch.ops import similarity as sim
 from radiant_rag_tpu_torch.ops.bm25 import (
     bm25_candidate_rescore, bm25_pages_scores, bm25_sketch_select,
@@ -36,6 +36,15 @@ from radiant_rag_tpu_torch.ops.bm25 import (
 from radiant_rag_tpu_torch.ops.fusion import rrf_fuse, score_fuse, weighted_rrf_fuse
 
 Result = Dict[str, Tuple[np.ndarray, np.ndarray]]
+
+
+def resolve_fused_depth(retrieval_cfg) -> int:
+    """retrieval.fused_depth: -1 (auto) = 4 x fused_top_k; 0 disables the
+    candidate pool; > 0 is the explicit pool depth."""
+    fd = getattr(retrieval_cfg, "fused_depth", -1)
+    if fd is None or int(fd) < 0:
+        return 4 * int(getattr(retrieval_cfg, "fused_top_k", 15))
+    return int(fd)
 
 
 def _fuse_stage(dense_i, bm_i, leg_w, fused_k, rrf_k, fusion, dense_s=None, bm_s=None):
@@ -52,13 +61,9 @@ def _fuse_stage(dense_i, bm_i, leg_w, fused_k, rrf_k, fusion, dense_s=None, bm_s
 def _dense_stage(eng: DeviceVectorIndex, mask, queries, qvalid, dense_k, kc, mode, select):
     if mode == "exact":
         dense_s, dense_i = sim.exact_topk(eng.vecs, queries, mask, dense_k)
-    elif mode == "int8":
-        dense_s, dense_i = sim.two_stage_topk(
-            eng.vecs, queries, mask, dense_k, kc, "int8", eng.i8,
-            *qz.int8_scale_offset(eng.i8_lo, eng.i8_hi), select=select)
-    else:
-        raise NotImplementedError(
-            f"dense mode {mode!r} is not ported yet (ROADMAP queue B items 3-4)")
+    else:  # binary, or any other mode the int8 stage 1 (as in the JAX package)
+        dense_s, dense_i = eng.two_stage(queries, mask, dense_k, kc,
+                                         "binary" if mode == "binary" else "int8", select)
     dense_i = torch.where(dense_s > sim.NEG_INF / 2, dense_i, -1)
     dense_i = torch.where(qvalid[:, None], dense_i, -1)
     return dense_s, dense_i
@@ -95,7 +100,7 @@ class HybridSearcher:
         bm25_k: int = 10,
         fused_k: int = 15,
         rrf_k: int = 60,
-        mode: str = "int8",  # exact | int8
+        mode: str = "binary",  # exact | binary | int8
         rescore_multiplier: float = 4.0,
         level_code: int = -1,
         lang_code: int = -1,

@@ -1,24 +1,39 @@
 """Wrappers of the hand-written CUDA kernels, each beside its plain version.
 
-  int8_scan_topk  csrc/int8_scan_topk.cu  <- pallas_kernels.int8_scan_topk_pallas
-  blockmax2       csrc/blockmax2.cu       <- pallas_kernels.blockmax2_pallas
+  int8_scan_topk     csrc/int8_scan_topk.cu  <- pallas_kernels.int8_scan_topk_pallas
+  blockmax2          csrc/blockmax2.cu       <- pallas_kernels.blockmax2_pallas
+  hamming_scores     csrc/hamming.cu         <- pallas_kernels.hamming_scores_pallas
+  hamming_scores_t   csrc/hamming.cu         <- pallas_kernels.hamming_scores_pallas_t
+  hamming_scan_topk  csrc/hamming.cu         <- similarity.hamming_scan_topk's scan,
+                                                 the same tile with a top-k epilogue
+  int8_scores        csrc/int8_scores.cu     <- pallas_kernels.int8_scores_pallas
 
 A wrapper runs the plain PyTorch version only for CPU tensors. For CUDA
 tensors it launches the kernel or raises; nothing falls back. Each wrapper
-counts its launches in `<wrapper>.launches`, so a run can show that its
-path went through the kernel.
+counts its launches in `<wrapper>.launches`, and by shape in
+`launches_by_shape[(wrapper name, D or W, k or 0)]`, so a run can show that
+its path went through the kernel, and at which shapes.
+
+The scan wrappers compute a launch's shared memory (`int8_scan_smem_bytes`,
+`hamming_scan_smem_bytes`) to refuse a k that does not fit, and pass it to
+the launch, which refuses to run if its own layout needs another size.
 
 The plain versions compute the same function the obvious way: the integer
 dot products as an fp32 matmul (exact: |score| <= 127 * 128 * D < 2^24 for
 D <= 1024, so every partial sum is an exactly representable integer), then a
 top-k over unique int64 keys (score, then row ascending) so that ties break
-by the lowest row exactly as the kernels and `lax.top_k` do.
+by the lowest row exactly as the kernels and `lax.top_k` do. The Hamming
+plain versions take the popcount of `torch.bitwise_xor` by bit arithmetic
+on int64 (a SWAR popcount), a block of queries and rows at a time.
+
+Sign codes are int32 tensors holding the JAX package's uint32 bits; the
+kernels read them as uint32.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -26,10 +41,18 @@ from radiant_rag_tpu_torch import _build
 
 NEG = -3.0e38  # score of an empty output slot (pallas_kernels.NEG)
 BLOCKMAX_TILE = 512  # rows per block-max tile: part of the selection semantics
-INT8_SCAN_TOPK_MAX_K = 256  # per-query list length the kernel's shared memory holds
+# Per-query list length of the scan kernels (csrc/topk_list.cuh: 16 slots
+# per lane of the warp that updates a list). Shared memory bounds k further
+# at wide D: see `_check_k`.
+INT8_SCAN_TOPK_MAX_K = 512
+SMEM_MAX = 232_448  # dynamic shared memory one CTA may use on Hopper (227 KB)
 _MERGE_MAX = 4096  # largest splits * k the merge launch sorts in shared memory
 _REF_QUERY_CHUNK = 256  # query rows per plain-version step (bounds its (B, N) buffer)
+_REF_CELLS = 1 << 25  # (query, row, word) cells per Hamming plain-version step
+_QB, _TILE, _PAD = 32, 64, 16  # the kernels' CTA tile (csrc/int8_tile.cuh, hamming.cu)
 _P = ctypes.c_void_p
+_LAYOUT_MISMATCH = -1  # a scan entry's return when its shared-memory layout disagrees
+launches_by_shape: Dict[Tuple[str, int, int], int] = {}
 
 
 def _keys(scores: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -57,17 +80,39 @@ def _dots(codes_t: torch.Tensor, qi: torch.Tensor) -> torch.Tensor:
     return qi.to(torch.float32) @ codes_t
 
 
-def int8_scan_topk_reference(codes: torch.Tensor, qi: torch.Tensor,
-                             mask: Optional[torch.Tensor], k: int
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of `int8_scan_topk`."""
-    n = codes.shape[0]
+def _popcount64(x: torch.Tensor) -> torch.Tensor:
+    """Bits set in each int64 element of x (values below 2^32), in place."""
+    x -= (x >> 1) & 0x55555555
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) >> 24) & 0xFF
+
+
+def _hamming(codes: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(B, N) int32 Hamming distances between (B, W) and (N, W) sign words,
+    a block of (query, row, word) cells at a time."""
+    b, (n, w) = q.shape[0], codes.shape
+    out = torch.empty((b, n), dtype=torch.int32, device=codes.device)
+    c64 = codes.to(torch.int64) & 0xFFFFFFFF
+    q64 = q.to(torch.int64) & 0xFFFFFFFF
+    rows = max(1, min(n, _REF_CELLS // max(w, 1)))
+    qs = max(1, _REF_CELLS // (rows * max(w, 1)))
+    for r0 in range(0, n, rows):
+        c = c64[r0:r0 + rows]
+        for q0 in range(0, b, qs):
+            x = torch.bitwise_xor(q64[q0:q0 + qs, None, :], c[None, :, :])
+            out[q0:q0 + qs, r0:r0 + rows] = _popcount64(x).sum(dim=2).to(torch.int32)
+    return out
+
+
+def _topk_rows(score_blocks, mask: Optional[torch.Tensor], n: int, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of exact-integer (b, N) score blocks in the kernels' order
+    (score descending, row ascending; masked rows out; empty (NEG, -1))."""
     kk = min(k, n)
-    codes_t = codes.to(torch.float32).T
     outs_s, outs_r = [], []
-    for q0 in range(0, max(qi.shape[0], 1), _REF_QUERY_CHUNK):
-        keys = _keys(_dots(codes_t, qi[q0:q0 + _REF_QUERY_CHUNK]), mask)
-        s, r = _decode(torch.topk(keys, kk, dim=1).values)
+    for scores in score_blocks:
+        s, r = _decode(torch.topk(_keys(scores, mask), kk, dim=1).values)
         outs_s.append(s)
         outs_r.append(r)
     s, r = torch.cat(outs_s), torch.cat(outs_r)
@@ -75,6 +120,42 @@ def int8_scan_topk_reference(codes: torch.Tensor, qi: torch.Tensor,
         s = torch.nn.functional.pad(s, (0, k - kk), value=NEG)
         r = torch.nn.functional.pad(r, (0, k - kk), value=-1)
     return s, r
+
+
+def int8_scan_topk_reference(codes: torch.Tensor, qi: torch.Tensor,
+                             mask: Optional[torch.Tensor], k: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `int8_scan_topk`."""
+    codes_t = codes.to(torch.float32).T
+    blocks = (_dots(codes_t, qi[q0:q0 + _REF_QUERY_CHUNK])
+              for q0 in range(0, max(qi.shape[0], 1), _REF_QUERY_CHUNK))
+    return _topk_rows(blocks, mask, codes.shape[0], k)
+
+
+def int8_scores_reference(codes: torch.Tensor, qi: torch.Tensor) -> torch.Tensor:
+    """Plain version of `int8_scores`: (B, N) int32 raw dot products."""
+    return _dots(codes.to(torch.float32).T, qi).to(torch.int32)
+
+
+def hamming_scores_reference(codes: torch.Tensor, qcodes: torch.Tensor) -> torch.Tensor:
+    """Plain version of `hamming_scores`: (B, N) int32 distances from (N, W)
+    codes."""
+    return _hamming(codes, qcodes)
+
+
+def hamming_scores_t_reference(codes_t: torch.Tensor, qcodes: torch.Tensor) -> torch.Tensor:
+    """Plain version of `hamming_scores_t`: the same from (W, N) codes."""
+    return _hamming(codes_t.T, qcodes)
+
+
+def hamming_scan_topk_reference(codes: torch.Tensor, qcodes: torch.Tensor,
+                                mask: Optional[torch.Tensor], k: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `hamming_scan_topk`."""
+    top = 32 * codes.shape[1]
+    blocks = (top - 2 * _hamming(codes, qcodes[q0:q0 + _REF_QUERY_CHUNK])
+              for q0 in range(0, max(qcodes.shape[0], 1), _REF_QUERY_CHUNK))
+    return _topk_rows(blocks, mask, codes.shape[0], k)
 
 
 def blockmax2_reference(codes: torch.Tensor, qi: torch.Tensor,
@@ -103,27 +184,71 @@ def blockmax2_reference(codes: torch.Tensor, qi: torch.Tensor,
     return torch.cat(outs_s), torch.cat(outs_r)
 
 
-def _check(codes: torch.Tensor, qi: torch.Tensor, mask: Optional[torch.Tensor]):
-    if codes.dtype != torch.int8 or qi.dtype != torch.int8:
-        raise TypeError(f"int8 codes and queries expected, got {codes.dtype}, {qi.dtype}")
-    if codes.dim() != 2 or qi.dim() != 2 or codes.shape[1] != qi.shape[1]:
-        raise ValueError(f"shapes {tuple(codes.shape)} and {tuple(qi.shape)} do not match")
-    if not (codes.is_contiguous() and qi.is_contiguous()):
+def _check_pair(codes: torch.Tensor, q: torch.Tensor, dtype: torch.dtype, n: int, width: int,
+                width_ok: bool, what: str) -> None:
+    if codes.dtype != dtype or q.dtype != dtype:
+        raise TypeError(f"{dtype} codes and queries expected, got {codes.dtype}, {q.dtype}")
+    if codes.dim() != 2 or q.dim() != 2 or width != q.shape[1]:
+        raise ValueError(f"shapes {tuple(codes.shape)} and {tuple(q.shape)} do not match")
+    if not (codes.is_contiguous() and q.is_contiguous()):
         raise ValueError("codes and queries must be contiguous")
-    if qi.device != codes.device:
+    if q.device != codes.device:
         raise ValueError("codes and queries must be on one device")
-    n, d = codes.shape
-    if d % 16 or d > 1024 or d == 0:
-        raise ValueError(f"the kernels take 0 < D <= 1024 with D % 16 == 0, got {d}")
+    if not width_ok:
+        raise ValueError(f"the kernels take {what}, got {width}")
     if n >= 2**31 - 1:
         raise ValueError(f"{n} rows exceed the kernels' int32 row ids")
+
+
+def _check_mask(mask: Optional[torch.Tensor], n: int, device: torch.device):
     if mask is None:
         return None
-    if mask.shape != (n,) or mask.device != codes.device:
+    if mask.shape != (n,) or mask.device != device:
         raise ValueError(f"mask of shape {tuple(mask.shape)} does not match {n} rows")
     if mask.dtype not in (torch.bool, torch.uint8, torch.int8):
         raise TypeError(f"bool / uint8 mask expected, got {mask.dtype}")
     return mask.contiguous().view(torch.uint8)
+
+
+def _check(codes: torch.Tensor, qi: torch.Tensor, mask: Optional[torch.Tensor]):
+    """int8 (N, D) codes and (B, D) queries; returns the mask as uint8."""
+    d = codes.shape[-1]
+    _check_pair(codes, qi, torch.int8, codes.shape[0], d, 0 < d <= 1024 and d % 16 == 0,
+                "0 < D <= 1024 with D % 16 == 0")
+    return _check_mask(mask, codes.shape[0], codes.device)
+
+
+def _check_words(codes: torch.Tensor, q: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                 transposed: bool = False):
+    """int32 sign words, (N, W) or transposed (W, N), and (B, W) queries;
+    returns the mask as uint8."""
+    w, n = (codes.shape[0], codes.shape[-1]) if transposed else (codes.shape[-1], codes.shape[0])
+    _check_pair(codes, q, torch.int32, n, w, 0 < w <= 32, "0 < W <= 32 words")
+    return _check_mask(mask, n, codes.device)
+
+
+def int8_scan_smem_bytes(d: int, k: int) -> int:
+    """Shared memory of one int8 scan CTA: the tile (32 queries, 64 rows of
+    D + 16 bytes, the 32 x 64 int32 scores, 64 valid flags) and the lists
+    (32 queries x k x (score, row) int32)."""
+    tile = _QB * d + _TILE * (d + _PAD) + _QB * _TILE * 4 + _TILE
+    return tile + 2 * _QB * k * 4
+
+
+def hamming_scan_smem_bytes(w: int, k: int) -> int:
+    """Shared memory of one Hamming scan CTA: the query words, the 64-row
+    code tile (row stride W or W + 1, the odd one), the scores, 64 valid
+    flags and the lists."""
+    stride = w if w % 2 else w + 1
+    return 4 * (_QB * w + _TILE * stride + _QB * _TILE) + _TILE + 2 * _QB * k * 4
+
+
+def _check_k(k: int, smem: int, what: str) -> None:
+    if not 1 <= k <= INT8_SCAN_TOPK_MAX_K:
+        raise ValueError(f"k={k} outside the kernel's 1..{INT8_SCAN_TOPK_MAX_K}")
+    if smem > SMEM_MAX:
+        raise ValueError(f"k={k} at {what} needs {smem} bytes of shared memory per CTA "
+                         f"(tile + 32 x k x 8 bytes of lists) > {SMEM_MAX}")
 
 
 def _lib(stem: str, entry: str, argtypes):
@@ -134,6 +259,9 @@ def _lib(stem: str, entry: str, argtypes):
 
 
 def _raise_on(err: int, name: str) -> None:
+    if err == _LAYOUT_MISMATCH:
+        raise RuntimeError(f"{name}: the kernel's shared-memory layout differs from the "
+                           "wrapper's arithmetic (ops/cuda_kernels.py *_smem_bytes)")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
@@ -142,12 +270,66 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def scan_topk_splits(n: int, b: int, k: int, num_sms: int) -> int:
     """Corpus splits of the partial launch: enough CTAs for two per SM, no
     more splits than 64-row tiles, and splits * k within the merge's sort."""
     qblocks = -(-b // 32)
     want = -(-2 * num_sms // qblocks)
     return max(1, min(want, -(-n // 64), _MERGE_MAX // k))
+
+
+def _count(fn, width: int, k: int = 0) -> None:
+    """One launch of `fn`'s kernel at width D or W and depth k."""
+    fn.launches += 1
+    key = (fn.__name__, width, k)
+    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+
+
+def _scan_topk(stem: str, entry: str, codes: torch.Tensor, q: torch.Tensor,
+               m8: Optional[torch.Tensor], n: int, width: int, k: int, smem: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch a split scan -> top-k kernel (partial lists, then the merge)
+    whose partial CTA takes `smem` bytes of shared memory."""
+    b = q.shape[0]
+    dev = codes.device
+    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out_s, out_r
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = scan_topk_splits(n, b, k, sms)
+    rows_per_split = -(-n // (splits * 64)) * 64
+    merge_p = 1 << max(0, (splits * k - 1).bit_length())
+    part_s = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
+    part_r = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
+    fn = _lib(stem, entry,
+              [_P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, _P, _P, _P, _P, _P])
+    with torch.cuda.device(dev):
+        err = fn(codes.data_ptr(), q.data_ptr(), _ptr(m8), n, width, b, k, splits,
+                 rows_per_split, merge_p, smem, part_s.data_ptr(), part_r.data_ptr(),
+                 out_s.data_ptr(), out_r.data_ptr(), _stream(dev))
+    _raise_on(err, entry)
+    return out_s, out_r
+
+
+def _scores(stem: str, entry: str, codes: torch.Tensor, q: torch.Tensor, n: int, width: int
+            ) -> torch.Tensor:
+    """Launch a (B, N) int32 score kernel."""
+    b = q.shape[0]
+    out = torch.empty((b, n), dtype=torch.int32, device=codes.device)
+    if b == 0 or n == 0:
+        return out
+    fn = _lib(stem, entry, [_P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P, _P])
+    with torch.cuda.device(codes.device):
+        err = fn(codes.data_ptr(), q.data_ptr(), n, width, b, out.data_ptr(),
+                 _stream(codes.device))
+    _raise_on(err, entry)
+    return out
 
 
 def int8_scan_topk(codes: torch.Tensor, qi: torch.Tensor,
@@ -161,32 +343,12 @@ def int8_scan_topk(codes: torch.Tensor, qi: torch.Tensor,
     if codes.device.type == "cpu":
         return int8_scan_topk_reference(codes, qi, mask, k)
     m8 = _check(codes, qi, mask)
-    if not 1 <= k <= INT8_SCAN_TOPK_MAX_K:
-        raise ValueError(f"k={k} outside the kernel's 1..{INT8_SCAN_TOPK_MAX_K}")
     n, d = codes.shape
-    b = qi.shape[0]
-    dev = codes.device
-    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
-    if b == 0:
-        return out_s, out_r
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = scan_topk_splits(n, b, k, sms)
-    rows_per_split = -(-n // (splits * 64)) * 64
-    merge_p = 1 << max(0, (splits * k - 1).bit_length())
-    part_s = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
-    part_r = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
-    fn = _lib("int8_scan_topk", "rr_int8_scan_topk",
-              [_P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_int, ctypes.c_int64, ctypes.c_int, _P, _P, _P, _P, _P])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(codes.data_ptr(), qi.data_ptr(), _ptr(m8), n, d, b, k, splits,
-                 rows_per_split, merge_p, part_s.data_ptr(), part_r.data_ptr(),
-                 out_s.data_ptr(), out_r.data_ptr(), stream)
-    _raise_on(err, "int8_scan_topk")
-    int8_scan_topk.launches += 1
-    return out_s, out_r
+    smem = int8_scan_smem_bytes(d, k)
+    _check_k(k, smem, f"D={d}")
+    out = _scan_topk("int8_scan_topk", "rr_int8_scan_topk", codes, qi, m8, n, d, k, smem)
+    _count(int8_scan_topk, d, k)
+    return out
 
 
 int8_scan_topk.launches = 0
@@ -214,12 +376,87 @@ def blockmax2(codes: torch.Tensor, qi: torch.Tensor, mask: Optional[torch.Tensor
     fn = _lib("blockmax2", "rr_blockmax2",
               [_P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P, _P, _P])
     with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = fn(codes.data_ptr(), qi.data_ptr(), _ptr(m8), n, d, b,
-                 out_s.data_ptr(), out_r.data_ptr(), stream)
+                 out_s.data_ptr(), out_r.data_ptr(), _stream(codes.device))
     _raise_on(err, "blockmax2")
-    blockmax2.launches += 1
+    _count(blockmax2, d)
     return out_s, out_r
 
 
 blockmax2.launches = 0
+
+
+def int8_scores(codes: torch.Tensor, qi: torch.Tensor) -> torch.Tensor:
+    """(B, N) int32 raw dot products qi . codes^T of (N, D) int8 codes and
+    (B, D) int8 queries, every row scored."""
+    if codes.device.type == "cpu":
+        return int8_scores_reference(codes, qi)
+    _check(codes, qi, None)
+    n, d = codes.shape
+    out = _scores("int8_scores", "rr_int8_scores", codes, qi, n, d)
+    _count(int8_scores, d)
+    return out
+
+
+int8_scores.launches = 0
+
+
+def hamming_scores(codes: torch.Tensor, qcodes: torch.Tensor) -> torch.Tensor:
+    """(B, N) int32 Hamming distances of (B, W) query words to (N, W) code
+    words (int32 tensors holding the uint32 sign bits)."""
+    if codes.device.type == "cpu":
+        return hamming_scores_reference(codes, qcodes)
+    _check_words(codes, qcodes)
+    n, w = codes.shape
+    out = _scores("hamming", "rr_hamming_scores", codes, qcodes, n, w)
+    _count(hamming_scores, w)
+    return out
+
+
+hamming_scores.launches = 0
+
+
+def hamming_scores_t(codes_t: torch.Tensor, qcodes: torch.Tensor) -> torch.Tensor:
+    """`hamming_scores` from transposed (W, N) code words."""
+    if codes_t.device.type == "cpu":
+        return hamming_scores_t_reference(codes_t, qcodes)
+    _check_words(codes_t, qcodes, transposed=True)
+    w, n = codes_t.shape
+    out = _scores("hamming", "rr_hamming_scores_t", codes_t, qcodes, n, w)
+    _count(hamming_scores_t, w)
+    return out
+
+
+hamming_scores_t.launches = 0
+
+
+def hamming_scan_topk(codes: torch.Tensor, qcodes: torch.Tensor,
+                      mask: Optional[torch.Tensor], k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k of raw = 32 W - 2 * Hamming distance per query, without a
+    (B, N) matrix: ((B, k) f32 raw, (B, k) int32 rows), ordered raw
+    descending then row ascending; masked rows excluded; empty slots
+    (-3e38, -1)."""
+    if codes.device.type == "cpu":
+        return hamming_scan_topk_reference(codes, qcodes, mask, k)
+    m8 = _check_words(codes, qcodes, mask)
+    n, w = codes.shape
+    smem = hamming_scan_smem_bytes(w, k)
+    _check_k(k, smem, f"W={w}")
+    out = _scan_topk("hamming", "rr_hamming_scan_topk", codes, qcodes, m8, n, w, k, smem)
+    _count(hamming_scan_topk, w, k)
+    return out
+
+
+hamming_scan_topk.launches = 0
+
+
+def reset_launches() -> None:
+    """Set every wrapper's launch count to 0, by shape too."""
+    for fn in KERNELS:
+        fn.launches = 0
+    launches_by_shape.clear()
+
+
+KERNELS = (int8_scan_topk, blockmax2, hamming_scan_topk, hamming_scores, hamming_scores_t,
+           int8_scores)

@@ -2,21 +2,27 @@
 
 Counterpart of `radiant_rag_tpu/ops/similarity.py`:
 
-  exact_topk       fp32 cosine scan (matmul) + top-k: the recall oracle and
-                   mode="exact"
-  int8_scan_topk   asymmetric int8 stage 1: the query is scale-folded and
-                   quantized to int8; the scan and the candidate selection
-                   run in one CUDA kernel (`ops/cuda_kernels.int8_scan_topk`)
-                   that never materializes (B, N) scores, or in the block-max
-                   kernel under select="blockmax"
-  two_stage_topk   stage 1 -> row-sorted candidates -> fp32 rescore -> top-k
+  exact_topk         fp32 cosine scan (matmul) + top-k: the recall oracle
+                     and mode="exact"
+  hamming_scan_topk  binary stage 1: XOR + popcount over packed sign words
+                     and the candidate selection in one CUDA kernel
+                     (`ops/cuda_kernels.hamming_scan_topk`), no (B, N) scores
+  int8_scan_topk     asymmetric int8 stage 1: the query is scale-folded and
+                     quantized to int8; the scan and the candidate selection
+                     run in one CUDA kernel (`ops/cuda_kernels.int8_scan_topk`)
+                     that never materializes (B, N) scores, or in the
+                     block-max kernel under select="blockmax"
+  two_stage_topk     stage 1 -> row-sorted candidates -> rescore -> top-k
 
 Selection policies. The JAX package selects stage-1 candidates over a
 materialized (B, N) buffer, in f32 or rounded to bf16 to halve that buffer
 ("bf16", "bf16_chunked"). The fused kernel has no such buffer, so every one
 of "", "f32", "bf16" and "bf16_chunked" runs it, and its results equal the
 JAX "f32" policy: the bf16 rounding of candidate scores is not reproduced.
-"blockmax" runs the per-512-row-tile top-2 kernel.
+"blockmax" runs the per-512-row-tile top-2 kernel. The binary stage 1
+takes `select` and ignores it, as the JAX package's chunked Hamming scan
+does ("blockmax" has no binary counterpart there either); it selects
+exactly, lowest row first among ties.
 
 Every top-k here breaks ties by the lowest index, as `lax.top_k` does
 (`topk_first`); `torch.topk` promises no order among equal values.
@@ -147,6 +153,20 @@ def scan_select(codes: torch.Tensor, qi: torch.Tensor, mask: Optional[torch.Tens
     return ck.int8_scan_topk(codes, qi, mask, k)
 
 
+def hamming_scan_topk(codes: torch.Tensor, qcodes: torch.Tensor,
+                      mask: Optional[torch.Tensor], k: int, select: str = ""
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Binary Hamming scan over (N, W) packed sign words: scores are
+    (D - 2 * hamming) / D with D = 32 W, the cosine of the sign vectors, so
+    stage-1 scores share the rescore's scale. Empty slots NEG_INF, -1.
+    `select` is accepted and ignored (see module doc)."""
+    inv_dim = float(torch.tensor(1.0 / (codes.shape[1] * 32), dtype=torch.float32))
+    raw_s, top_i = ck.hamming_scan_topk(codes, qcodes, mask, k)
+    valid = raw_s > NEG_INF / 2
+    top_s = torch.where(valid, raw_s * inv_dim, NEG_INF)  # XLA's reciprocal rewrite of / D
+    return top_s, top_i
+
+
 def int8_scan_topk(codes: torch.Tensor, queries: torch.Tensor, scale: torch.Tensor,
                    offset: torch.Tensor, mask: Optional[torch.Tensor], k: int,
                    select: str = "") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -162,20 +182,25 @@ def int8_scan_topk(codes: torch.Tensor, queries: torch.Tensor, scale: torch.Tens
 
 
 def two_stage_topk(corpus: torch.Tensor, queries: torch.Tensor,
-                   mask: Optional[torch.Tensor], k: int, k_candidates: int,
-                   stage1: str, int8_codes: torch.Tensor, int8_scale: torch.Tensor,
-                   int8_offset: torch.Tensor, select: str = ""
+                   mask: Optional[torch.Tensor], k: int, k_candidates: int, stage1: str,
+                   binary_codes: Optional[torch.Tensor] = None,
+                   qbinary: Optional[torch.Tensor] = None,
+                   int8_codes: Optional[torch.Tensor] = None,
+                   int8_scale: Optional[torch.Tensor] = None,
+                   int8_offset: Optional[torch.Tensor] = None, select: str = ""
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stage-1 int8 scan -> row-sorted candidates -> rescore -> top-k.
+    """Stage-1 scan ("hamming" over sign words, or "int8") -> row-sorted
+    candidates -> rescore -> top-k.
 
     The rescore is fp32 against the stored vectors, or (fp32-free mode, an
     empty `corpus`) against the dequantized int8 codes."""
-    if stage1 != "int8":
-        raise NotImplementedError(
-            f"stage1={stage1!r}: the Hamming stage 1 (precision 'binary') waits "
-            "for its kernel, ROADMAP queue B items 3-4")
-    s1, cand = int8_scan_topk(int8_codes, queries, int8_scale, int8_offset, mask,
-                              k_candidates, select)
+    if stage1 == "hamming":
+        s1, cand = hamming_scan_topk(binary_codes, qbinary, mask, k_candidates, select)
+    elif stage1 == "int8":
+        s1, cand = int8_scan_topk(int8_codes, queries, int8_scale, int8_offset, mask,
+                                  k_candidates, select)
+    else:
+        raise ValueError(f"unknown stage1: {stage1}")
     cand = torch.where(s1 > NEG_INF / 2, cand, -1)
     cand = sort_candidates_by_row(cand)
     safe = cand.clamp_min(0).long()

@@ -57,6 +57,59 @@ def test_kernels_equal_plain_versions(card, n, d, b, k, lo, hi):
         (launches[0] + 1, launches[1] + 1)
 
 
+@pytest.mark.parametrize("n,d,b,k", [(20_000, 384, 40, 360), (9000, 512, 3, 360),
+                                     (12_000, 1024, 33, 240), (5000, 384, 2, 512)])
+def test_int8_scan_topk_at_serving_k(card, n, d, b, k):
+    """The k the presets reach at the auto fused depth (60 x 4.0, 60 x 6.0)."""
+    codes, qi, mask = _inputs(n + d + k, n, d, b, -2, 3, card)
+    s, r = ck.int8_scan_topk(codes, qi, mask, k)
+    torch.cuda.synchronize()
+    ps, pr = ck.int8_scan_topk_reference(codes, qi, mask, k)
+    assert torch.equal(r, pr) and torch.equal(s, ps)
+
+
+def _words(seed, n, w, b, card, ties=True):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 2**32, (n, w), dtype=np.uint64).astype(np.uint32)
+    if ties:  # few distinct words: raw takes few values, ties at every k
+        codes &= np.uint32(0x0F0F0F0F)
+    codes[n // 2:n // 2 + 9] = codes[5]  # a block of duplicate codes
+    q = rng.integers(0, 2**32, (b, w), dtype=np.uint64).astype(np.uint32)
+    mask = np.ones(n, bool)
+    mask[2:50] = False
+    return (torch.from_numpy(codes.view(np.int32)).to(card),
+            torch.from_numpy(q.view(np.int32)).to(card), torch.from_numpy(mask).to(card))
+
+
+@pytest.mark.parametrize("n,w,b,k,ties", [(20_000, 12, 40, 360, True), (5000, 12, 1, 60, True),
+                                          (70_001, 24, 65, 240, False),
+                                          (3000, 12, 8, 512, True), (100, 12, 4, 360, False)])
+def test_hamming_scan_topk_equals_plain_version(card, n, w, b, k, ties):
+    codes, q, mask = _words(n + k, n, w, b, card, ties)
+    before = ck.hamming_scan_topk.launches
+    key = ("hamming_scan_topk", w, k)
+    before_shape = ck.launches_by_shape.get(key, 0)
+    s, r = ck.hamming_scan_topk(codes, q, mask, k)
+    torch.cuda.synchronize()
+    ps, pr = ck.hamming_scan_topk_reference(codes, q, mask, k)
+    assert torch.equal(r, pr) and torch.equal(s, ps)
+    assert ck.hamming_scan_topk.launches == before + 1
+    assert ck.launches_by_shape[key] == before_shape + 1
+
+
+@pytest.mark.parametrize("n,w,b", [(5000, 12, 33), (70_001, 24, 1), (4096, 32, 64)])
+def test_score_kernels_equal_plain_versions(card, n, w, b):
+    codes, q, _ = _words(n + w, n, w, b, card, ties=False)
+    h = ck.hamming_scores(codes, q)
+    ht = ck.hamming_scores_t(codes.T.contiguous(), q)
+    i8, qi, _ = _inputs(n + b, n, 32 * w, b, -127, 128, card)
+    sc = ck.int8_scores(i8, qi)
+    torch.cuda.synchronize()
+    ref = ck.hamming_scores_reference(codes, q)
+    assert torch.equal(h, ref) and torch.equal(ht, ref)
+    assert torch.equal(sc, ck.int8_scores_reference(i8, qi))
+
+
 def test_wrapper_rejects_what_the_kernel_cannot_take(card):
     codes, qi, mask = _inputs(1, 2048, 64, 4, -3, 4, card)
     with pytest.raises(ValueError):
@@ -65,6 +118,14 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(card):
         ck.int8_scan_topk(codes[:, :40].contiguous(), qi[:, :40].contiguous(), mask, 10)
     with pytest.raises(TypeError):
         ck.blockmax2(codes.float(), qi, mask)
+    wide, qw, _ = _inputs(2, 2048, 1024, 4, -3, 4, card)
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.int8_scan_topk(wide, qw, None, 512)
+    words, q, _ = _words(3, 2048, 12, 4, card)
+    with pytest.raises(TypeError):
+        ck.hamming_scan_topk(words.to(torch.int64), q, None, 10)
+    with pytest.raises(ValueError):
+        ck.hamming_scores(words, q[:, :8].contiguous())
 
 
 @pytest.mark.parametrize("route,select", [("sketch", ""), ("pages", ""),

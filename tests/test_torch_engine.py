@@ -130,6 +130,8 @@ def test_bucket_gate_and_unported_modes():
     s_big, r_big = t.search(np.concatenate([q] * 5), 10, mode="exact")  # chunked at 64
     s, r = t.search(q, 10, mode="exact")
     np.testing.assert_array_equal(r_big, np.concatenate([r] * 5))
-    for mode in ("binary", "graph"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t.search(q, 10, mode=mode)
+    # binary is ported (not score-gated: no (B, N) buffer); graph is not
+    s_bin, r_bin = t.search(np.concatenate([q] * 5), 10, mode="binary")
+    np.testing.assert_array_equal(r_bin, np.concatenate([t.search(q, 10, mode="binary")[1]] * 5))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 10"):
+        t.search(q, 10, mode="graph")

@@ -20,13 +20,20 @@ bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "radiant_rag_tpu" or m.startswith("radiant_rag_tpu.")]
 assert not bad, bad
-assert len(names) >= 12, names
+new = {"config", "index.base", "index.doc", "index.docstore", "index.factory",
+       "index.numpy_store", "index.store"}
+assert {"radiant_rag_tpu_torch." + m for m in new} <= set(names), names
 import torch
 assert not torch.cuda.is_available()
-from radiant_rag_tpu_torch.index.bm25 import BM25Index
+from radiant_rag_tpu_torch.config import config_from_dict
+from radiant_rag_tpu_torch.index.bm25 import BM25Index, PersistentBM25Index
 from radiant_rag_tpu_torch.index.engine import DeviceVectorIndex
+from radiant_rag_tpu_torch.index.factory import create_vector_store
+from radiant_rag_tpu_torch.index.store import TpuVectorStore
 for make in (lambda: DeviceVectorIndex(64), lambda: BM25Index(),
-             lambda: DeviceVectorIndex(64, device="cuda")):
+             lambda: DeviceVectorIndex(64, device="cuda"), lambda: TpuVectorStore(64),
+             lambda: create_vector_store(config_from_dict({})),
+             lambda: PersistentBM25Index(None)):
     try:
         make()
     except RuntimeError as exc:
@@ -57,3 +64,22 @@ def test_port_sources_name_no_jax_import(path):
             mod = words[1].rstrip(",")
             assert mod != "jax" and not mod.startswith("jax."), line
             assert mod != "radiant_rag_tpu" and not mod.startswith("radiant_rag_tpu."), line
+
+
+def test_load_config_raises_instead_of_serving_defaults(tmp_path, caplog):
+    """The JAX package's load_config warns and serves the defaults when a
+    file does not parse; the port's raises, so no other configuration runs."""
+    from radiant_rag_tpu_torch.config import load_config
+
+    bad = tmp_path / "bad.yaml"
+    bad.write_text("index: [unclosed\n  store_fp32: false\n")
+    with pytest.raises(Exception) as info:
+        load_config(str(bad))
+    assert "yaml" in type(info.value).__module__.lower() or "YAML" in str(info.value)
+    assert not [r for r in caplog.records if r.levelname == "WARNING"]
+    with pytest.raises(FileNotFoundError):
+        load_config(str(tmp_path / "missing.yaml"))
+    scalar = tmp_path / "scalar.yaml"
+    scalar.write_text("just a string\n")
+    with pytest.raises(ValueError, match="mapping"):
+        load_config(str(scalar))

@@ -196,16 +196,27 @@ def test_two_stage_topk_matches_jax(fp32, select):
                                  40, "int8", int8_codes=jnp.asarray(codes),
                                  int8_scale=jnp.asarray(sc), int8_offset=jnp.asarray(of),
                                  select=select)
-    ts, ti = tsim.two_stage_topk(T(stored), T(q), T(mask), 10, 40, "int8", T(codes),
-                                 T(sc), T(of), select=select)
+    ts, ti = tsim.two_stage_topk(T(stored), T(q), T(mask), 10, 40, "int8", int8_codes=T(codes),
+                                 int8_scale=T(sc), int8_offset=T(of), select=select)
     assert_rows_match(np.asarray(ji), np.asarray(js), ti.numpy(), ts.numpy(),
                       f"two_stage {select} fp32={fp32}")
 
 
 def test_two_stage_hamming_not_ported():
+    """The Hamming stage 1 was pinned here as unported; it is ported now, so
+    this holds it against JAX where kc covers every row (no boundary tie
+    can differ), and an unknown stage 1 still raises."""
     corpus, q, mask, codes, sc, of = _corpus(10, n=512, b=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsim.two_stage_topk(T(corpus), T(q), None, 5, 20, "hamming", T(codes), T(sc), T(of))
+    words = np.asarray(jq.pack_binary(jnp.asarray(corpus)))
+    qwords = np.asarray(jq.pack_binary(jnp.asarray(q)))
+    js, ji = jsim.two_stage_topk(jnp.asarray(corpus), jnp.asarray(q), None, 5, 512, "hamming",
+                                 binary_codes=jnp.asarray(words), qbinary=jnp.asarray(qwords))
+    ts, ti = tsim.two_stage_topk(T(corpus), T(q), None, 5, 512, "hamming",
+                                 binary_codes=T(words.view(np.int32)),
+                                 qbinary=T(qwords.view(np.int32)))
+    assert_rows_match(np.asarray(ji), np.asarray(js), ti.numpy(), ts.numpy(), "hamming")
+    with pytest.raises(ValueError, match="unknown stage1"):
+        tsim.two_stage_topk(T(corpus), T(q), None, 5, 20, "pq", int8_codes=T(codes))
 
 
 def test_exact_topk_matches_jax():

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -68,6 +69,7 @@ MEMORY_OPTIMIZED_PRESET = {
     "bm25": {"sketch_dim": 512},
 }
 
+KERNEL_STEMS = ("blockmax2", "hamming", "int8_scan_topk", "int8_scores")  # csrc/<stem>.cu
 PALLAS = "radiant_rag_tpu/ops/pallas_kernels.py"
 KERNEL_SOURCES = {  # name -> (source, the TPU kernel it replaces)
     "int8_scan_topk": ("int8_scan_topk.cu", f"{PALLAS}:315"),
@@ -150,13 +152,15 @@ def check_kernel_pair(name, kernel, plain, args) -> float:
         raise AssertionError(f"{name}: {exc}") from None
 
 
-def kernel_row(name, label, kernel, plain, args, library, moved, ops, key):
+def kernel_row(name, label, kernel, plain, args, library, moved, ops, key, library_mm=None):
     """One kernel at one shape: exact agreement with its plain version on
     the same inputs, the kernel's, the plain version's and the library
     call's times, and the bound (operations at the int8 tensor-core peak).
     Launches made here are comparisons, not main-path launches (the counts
     are reset before each main path); `key` is the shape's key in
-    `cuda_kernels.launches_by_shape`, whose main-path count the row gets."""
+    `cuda_kernels.launches_by_shape`, whose main-path count the row gets.
+    `library_mm`, where given, is a second yardstick timed as
+    `library_mm_ms`: the library's product alone, without the selection."""
     import torch
 
     out = kernel(*args)
@@ -178,7 +182,11 @@ def kernel_row(name, label, kernel, plain, args, library, moved, ops, key):
            "source": f"radiant_rag_tpu_torch/csrc/{src}", "replaces": replaces,
            "launches": 0, "max_abs_err": err, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "_key": key}
-    log(f"kernel {name} [{label}]: {ms:.3f} ms (plain {plain_ms:.3f}, library {lib_ms:.3f}, "
+    mm = ""
+    if library_mm is not None:
+        row["library_mm_ms"] = cuda_ms(library_mm, reps=1)
+        mm = f", library product alone {row['library_mm_ms']:.3f}"
+    log(f"kernel {name} [{label}]: {ms:.3f} ms (plain {plain_ms:.3f}, library {lib_ms:.3f}{mm}, "
         f"bound {b_ms:.3f} by {b_by}), exact")
     return row
 
@@ -200,14 +208,14 @@ def scan_rows(ck, label, codes, qi, mask, k):
     n, d = codes.shape
     b = qi.shape[0]
 
-    def library():
+    def library_mm():
         sc = torch._int_mm(qi, codes.T)
-        sc.masked_fill_(~mask[None, :], torch.iinfo(torch.int32).min)
-        return torch.topk(sc, k, dim=1)
+        return sc.masked_fill_(~mask[None, :], torch.iinfo(torch.int32).min)
 
     return kernel_row("int8_scan_topk", label, ck.int8_scan_topk, ck.int8_scan_topk_reference,
-                      (codes, qi, mask, k), library, n * d + b * d + n + b * k * 8,
-                      2.0 * b * n * d, ("int8_scan_topk", d, k))
+                      (codes, qi, mask, k), lambda: torch.topk(library_mm(), k, dim=1),
+                      n * d + b * d + n + b * k * 8, 2.0 * b * n * d, ("int8_scan_topk", d, k),
+                      library_mm)
 
 
 def blockmax_row(ck, label, codes, qi, mask):
@@ -273,14 +281,21 @@ def hamming_rows(ck, codes, qwords, mask, qi, i8):
 def phase_edges(ck):
     """Edge shapes of every kernel: ragged N, masked rows and a fully dead
     512-row tile, forced ties (duplicated rows, narrow value range), W = 24,
-    B = 1, and the k the presets reach at the auto fused depth."""
+    B = 1, and the k the presets reach at the auto fused depth. For the
+    int8 tensor-core tile (128-row tiles, 64- or 32-query blocks, 32-byte
+    mma steps): N and B off its multiples, D = 16 and 48, k on both sides of
+    the query-block switch (363 | 364) and k = 512 at D = 1024."""
     import torch
 
+    check(ck.int8_scan_qb(363) == 64 and ck.int8_scan_qb(364) == 32, "query-block switch moved")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [(5000, 384, 33, 40, -127, 128), (5000, 1024, 1, 160, -2, 3),
              (70_000, 384, 70, 160, -1, 2), (3000, 64, 5, 256, -127, 128),
              (20_001, 384, 40, 360, -2, 3), (9000, 512, 3, 360, -1, 2),
-             (12_000, 1024, 33, 240, -2, 3), (5000, 384, 1, 512, -1, 2)]
+             (12_000, 1024, 33, 240, -2, 3), (5000, 384, 1, 512, -1, 2),
+             (3001, 16, 65, 40, -127, 128), (4099, 48, 7, 100, -2, 3),
+             (2177, 48, 1, 16, -1, 2), (6000, 64, 65, 363, -2, 3),
+             (6000, 64, 65, 364, -2, 3), (5000, 1024, 3, 512, -1, 2)]
     for n, d, b, k, lo, hi in cases:
         codes = torch.randint(lo, hi, (n, d), dtype=torch.int8, device="cuda", generator=g)
         codes[n // 2: n // 2 + 7] = codes[11]  # exact duplicates: ties at one score
@@ -361,6 +376,45 @@ def small_path_check():
                       f"small path run {i} {leg}: card rows differ from CPU, query {q_}")
     log(f"small path: card == CPU plain path on {len(out['cpu'])} mode/route/select/fp32 "
         "variants")
+
+
+def sass_counts(_build, stem: str):
+    """{kernel function: (tensor-core instructions (IMMA, IGMMA), IDP.4A
+    instructions)} in the built library of csrc/<stem>.cu, read from
+    `cuobjdump -sass` (the toolkit's, beside nvcc)."""
+    bindir = Path(_build.nvcc_path()).parent
+    text = subprocess.run([str(bindir / "cuobjdump"), "-sass", str(_build.library_path(stem))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += bool(re.search(r"\b(IMMA|IGMMA)\b", line))
+            counts[fn][1] += "IDP.4A" in line
+    filt = bindir / "cu++filt"
+    if counts and filt.is_file():
+        names = subprocess.run([str(filt)], input="\n".join(counts), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(counts):
+            counts = dict(zip(names, counts.values()))
+    return counts
+
+
+def log_sass(_build) -> None:
+    """One line per built library: its kernels' tensor-core and IDP.4A
+    instruction counts. The int8 tensor-core tile's kernels must show the
+    former and none of the latter."""
+    for stem in KERNEL_STEMS:
+        counts = sass_counts(_build, stem)
+        log(f"sass {stem}: " + "; ".join(f"{fn} IMMA/IGMMA {t} IDP.4A {i}"
+                                         for fn, (t, i) in counts.items()))
+        if stem in ("int8_scan_topk", "int8_scores"):
+            check(sum(t for t, _ in counts.values()) > 0 and
+                  sum(i for _, i in counts.values()) == 0,
+                  f"{stem}: expected tensor-core instructions and no IDP.4A")
 
 
 def profile_batch(fn, what: str) -> None:
@@ -472,8 +526,12 @@ def main() -> int:
     log(f"kernel build: {build_s:.2f} s")
     for stem, text in _build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {stem}: {line.strip()}")
+    log_sass(_build)
+    log("int8_scan_topk partial CTAs per SM (occupancy API): " + ", ".join(
+        f"k={k} ({ck.int8_scan_qb(k)} queries, {ck.int8_scan_smem_bytes(ck.int8_scan_qb(k), k)} B)"
+        f" {ck.int8_scan_ctas_per_sm(k, torch.device('cuda'))}" for k in (40, 160, 240, 360, 512)))
 
     phase_edges(ck)
     torch.cuda.synchronize()

@@ -31,7 +31,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.isfile(path):
         raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
@@ -55,7 +55,7 @@ def build_all() -> float:
         if not todo:
             return 0.0
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
+        nvcc = nvcc_path()
         procs = []
         for src, so in todo:
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
@@ -75,13 +75,17 @@ def build_all() -> float:
         return time.perf_counter() - t0
 
 
+def library_path(stem: str) -> Path:
+    """Where the shared library of `csrc/<stem>.cu` is built."""
+    return _target(CSRC / f"{stem}.cu")
+
+
 def library(stem: str) -> ctypes.CDLL:
     """The loaded shared library of `csrc/<stem>.cu`, built on first use."""
     lib = _libs.get(stem)
     if lib is not None:
         return lib
-    src = CSRC / f"{stem}.cu"
-    so = _target(src)
+    so = library_path(stem)
     if not so.is_file():
         build_all()
     with _lock:

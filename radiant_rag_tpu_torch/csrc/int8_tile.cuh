@@ -1,8 +1,9 @@
-// Shared building block of the int8 scan kernels (int8_scan_topk.cu,
-// blockmax2.cu): a CTA holds QB queries and streams TILE corpus rows at a
-// time through shared memory, computing the QB x TILE int32 dot products
-// with __dp4a. Each thread owns a 4-query x 2-row register micro-tile, so
-// one 16-byte shared-memory read feeds eight dp4a.
+// The __dp4a tile of the block-max kernel (blockmax2.cu): a CTA holds QB
+// queries and streams TILE corpus rows at a time through shared memory,
+// computing the QB x TILE int32 dot products with __dp4a. Each thread owns
+// a 4-query x 2-row register micro-tile, so one 16-byte shared-memory read
+// feeds eight dp4a. (The int8 scan and score kernels use the tensor-core
+// tile, int8_mma_tile.cuh.)
 #pragma once
 
 #include <cstdint>

@@ -1,7 +1,8 @@
-// Shared exact top-k machinery of the scan kernels (int8_scan_topk.cu,
-// hamming.cu): a per-query sorted list in shared memory that one warp
-// updates from a scored 64-row tile, and the merge launch that combines the
-// corpus splits' lists into the final (B, k) answer.
+// Exact top-k machinery of the scan kernels: the (score, row) order key and
+// the merge launch that combines the corpus splits' lists into the final
+// (B, k) answer (int8_scan_topk.cu, hamming.cu), and the Hamming scan's
+// per-query sorted list in shared memory that one warp updates from a
+// scored 64-row tile (hamming.cu; the int8 scan keeps its lists itself).
 //
 // Order: score descending, then row ascending (the Pallas kernels' first-
 // index rule and lax.top_k's). A tile's rows arrive in ascending order, so

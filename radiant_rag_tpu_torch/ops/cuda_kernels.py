@@ -8,15 +8,22 @@
                                                  the same tile with a top-k epilogue
   int8_scores        csrc/int8_scores.cu     <- pallas_kernels.int8_scores_pallas
 
+`int8_scores` and `int8_scan_topk` run on the int8 tensor-core tile
+(csrc/int8_mma_tile.cuh: wgmma int8 products over 128 rows per CTA, 128
+queries for the scores and 64 (or 32) for the scan, fed from a cp.async
+ring); `blockmax2` keeps the __dp4a tile (csrc/int8_tile.cuh), the Hamming
+kernels their popcount tile.
+
 A wrapper runs the plain PyTorch version only for CPU tensors. For CUDA
 tensors it launches the kernel or raises; nothing falls back. Each wrapper
 counts its launches in `<wrapper>.launches`, and by shape in
 `launches_by_shape[(wrapper name, D or W, k or 0)]`, so a run can show that
 its path went through the kernel, and at which shapes.
 
-The scan wrappers compute a launch's shared memory (`int8_scan_smem_bytes`,
-`hamming_scan_smem_bytes`) to refuse a k that does not fit, and pass it to
-the launch, which refuses to run if its own layout needs another size.
+The scan wrappers plan a launch in Python (`int8_scan_plan`,
+`hamming_scan_smem_bytes`): shared memory per CTA, to refuse a k that does
+not fit, and the grid. They pass the shared memory to the launch, which
+refuses to run if its own layout needs another size.
 
 The plain versions compute the same function the obvious way: the integer
 dot products as an fp32 matmul (exact: |score| <= 127 * 128 * D < 2^24 for
@@ -33,7 +40,7 @@ kernels read them as uint32.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -49,7 +56,11 @@ SMEM_MAX = 232_448  # dynamic shared memory one CTA may use on Hopper (227 KB)
 _MERGE_MAX = 4096  # largest splits * k the merge launch sorts in shared memory
 _REF_QUERY_CHUNK = 256  # query rows per plain-version step (bounds its (B, N) buffer)
 _REF_CELLS = 1 << 25  # (query, row, word) cells per Hamming plain-version step
-_QB, _TILE, _PAD = 32, 64, 16  # the kernels' CTA tile (csrc/int8_tile.cuh, hamming.cu)
+_QB, _TILE = 32, 64  # the Hamming kernels' CTA tile (csrc/hamming.cu)
+# the int8 tensor-core tile (csrc/int8_mma_tile.cuh): rows per tile, bytes of
+# D per ring slice, ring stages; and the scan's queue entries per query
+# (csrc/int8_scan_topk.cu)
+MMA_ROWS, _MMA_BK, _MMA_STAGES, _SCAN_QCAP = 128, 64, 3, 16
 _P = ctypes.c_void_p
 _LAYOUT_MISMATCH = -1  # a scan entry's return when its shared-memory layout disagrees
 launches_by_shape: Dict[Tuple[str, int, int], int] = {}
@@ -227,12 +238,40 @@ def _check_words(codes: torch.Tensor, q: torch.Tensor, mask: Optional[torch.Tens
     return _check_mask(mask, n, codes.device)
 
 
-def int8_scan_smem_bytes(d: int, k: int) -> int:
-    """Shared memory of one int8 scan CTA: the tile (32 queries, 64 rows of
-    D + 16 bytes, the 32 x 64 int32 scores, 64 valid flags) and the lists
-    (32 queries x k x (score, row) int32)."""
-    tile = _QB * d + _TILE * (d + _PAD) + _QB * _TILE * 4 + _TILE
-    return tile + 2 * _QB * k * 4
+def int8_scan_smem_bytes(qb: int, k: int) -> int:
+    """Shared memory of one int8 scan CTA of `qb` queries: the ring (3 stages
+    of qb + 128 rows x 64 bytes, and 128 mask bytes each), the k-th score,
+    k-th row and queue count per query, the 16-entry queues and the lists
+    (qb x k), (score, row) int32 pairs each."""
+    ring = _MMA_STAGES * ((qb + MMA_ROWS) * _MMA_BK + MMA_ROWS)
+    return ring + qb * 4 * 3 + qb * _SCAN_QCAP * 8 + qb * k * 8
+
+
+def int8_scan_qb(k: int) -> int:
+    """Queries per int8 scan CTA at list length k: 64 where the lists fit in
+    one CTA's shared memory, else 32 (csrc/int8_scan_topk.cu scan_qb)."""
+    return 64 if int8_scan_smem_bytes(64, k) <= SMEM_MAX else 32
+
+
+class ScanPlan(NamedTuple):
+    qb: int              # queries per CTA
+    smem: int            # shared memory per partial CTA
+    splits: int          # corpus splits (grid y)
+    rows_per_split: int  # a multiple of MMA_ROWS
+
+
+def int8_scan_plan(n: int, b: int, k: int, num_sms: int, ctas_per_sm: int) -> ScanPlan:
+    """Launch plan of `int8_scan_topk`: as many splits as let the (query
+    blocks x splits) grid fill one wave of `num_sms` x `ctas_per_sm` CTAs
+    without starting a second (at least 1), no more splits than 128-row
+    tiles, none of them empty, and splits x k within the merge's sort."""
+    qb = int8_scan_qb(k)
+    qblocks = -(-b // qb)
+    tiles = -(-n // MMA_ROWS)
+    splits = max(1, min(num_sms * max(ctas_per_sm, 1) // qblocks, tiles, _MERGE_MAX // k))
+    per_split = max(1, -(-tiles // splits))
+    splits = max(1, -(-tiles // per_split))  # no split left without rows
+    return ScanPlan(qb, int8_scan_smem_bytes(qb, k), splits, per_split * MMA_ROWS)
 
 
 def hamming_scan_smem_bytes(w: int, k: int) -> int:
@@ -248,7 +287,14 @@ def _check_k(k: int, smem: int, what: str) -> None:
         raise ValueError(f"k={k} outside the kernel's 1..{INT8_SCAN_TOPK_MAX_K}")
     if smem > SMEM_MAX:
         raise ValueError(f"k={k} at {what} needs {smem} bytes of shared memory per CTA "
-                         f"(tile + 32 x k x 8 bytes of lists) > {SMEM_MAX}")
+                         f"(tile + queries x k x 8 bytes of lists) > {SMEM_MAX}")
+
+
+def _check_aligned(*tensors: torch.Tensor) -> None:
+    """The int8 tiles copy 16-byte chunks (cp.async, int4 loads)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("int8 codes and queries must start on a 16-byte boundary")
 
 
 def _lib(stem: str, entry: str, argtypes):
@@ -260,8 +306,8 @@ def _lib(stem: str, entry: str, argtypes):
 
 def _raise_on(err: int, name: str) -> None:
     if err == _LAYOUT_MISMATCH:
-        raise RuntimeError(f"{name}: the kernel's shared-memory layout differs from the "
-                           "wrapper's arithmetic (ops/cuda_kernels.py *_smem_bytes)")
+        raise RuntimeError(f"{name}: the kernel's shared-memory layout or row tile differs "
+                           "from the wrapper's launch plan (ops/cuda_kernels.py)")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
@@ -274,12 +320,30 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def scan_topk_splits(n: int, b: int, k: int, num_sms: int) -> int:
-    """Corpus splits of the partial launch: enough CTAs for two per SM, no
-    more splits than 64-row tiles, and splits * k within the merge's sort."""
-    qblocks = -(-b // 32)
+def hamming_scan_splits(n: int, b: int, k: int, num_sms: int) -> int:
+    """Corpus splits of the Hamming scan's partial launch: enough CTAs for
+    two per SM, no more splits than 64-row tiles, and splits * k within the
+    merge's sort."""
+    qblocks = -(-b // _QB)
     want = -(-2 * num_sms // qblocks)
-    return max(1, min(want, -(-n // 64), _MERGE_MAX // k))
+    return max(1, min(want, -(-n // _TILE), _MERGE_MAX // k))
+
+
+_ctas_per_sm: Dict[Tuple[int, int], int] = {}
+
+
+def int8_scan_ctas_per_sm(k: int, dev: torch.device) -> int:
+    """Partial CTAs one SM of `dev` holds at list length k, from the
+    occupancy API over the built kernel (its registers and shared memory)."""
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(), k)
+    if key not in _ctas_per_sm:
+        fn = _lib("int8_scan_topk", "rr_int8_scan_topk_ctas_per_sm",
+                  [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            _raise_on(fn(k, ctypes.byref(out)), "rr_int8_scan_topk_ctas_per_sm")
+        _ctas_per_sm[key] = out.value
+    return _ctas_per_sm[key]
 
 
 def _count(fn, width: int, k: int = 0) -> None:
@@ -290,8 +354,8 @@ def _count(fn, width: int, k: int = 0) -> None:
 
 
 def _scan_topk(stem: str, entry: str, codes: torch.Tensor, q: torch.Tensor,
-               m8: Optional[torch.Tensor], n: int, width: int, k: int, smem: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               m8: Optional[torch.Tensor], n: int, width: int, k: int, smem: int,
+               splits: int, rows_per_split: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch a split scan -> top-k kernel (partial lists, then the merge)
     whose partial CTA takes `smem` bytes of shared memory."""
     b = q.shape[0]
@@ -300,9 +364,6 @@ def _scan_topk(stem: str, entry: str, codes: torch.Tensor, q: torch.Tensor,
     out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return out_s, out_r
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = scan_topk_splits(n, b, k, sms)
-    rows_per_split = -(-n // (splits * 64)) * 64
     merge_p = 1 << max(0, (splits * k - 1).bit_length())
     part_s = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
     part_r = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
@@ -344,9 +405,14 @@ def int8_scan_topk(codes: torch.Tensor, qi: torch.Tensor,
         return int8_scan_topk_reference(codes, qi, mask, k)
     m8 = _check(codes, qi, mask)
     n, d = codes.shape
-    smem = int8_scan_smem_bytes(d, k)
-    _check_k(k, smem, f"D={d}")
-    out = _scan_topk("int8_scan_topk", "rr_int8_scan_topk", codes, qi, m8, n, d, k, smem)
+    _check_k(k, int8_scan_smem_bytes(int8_scan_qb(k), k), f"D={d}")
+    _check_aligned(codes, qi)
+    if m8 is not None and m8.data_ptr() % 16:  # its bytes are copied 16 at a time
+        m8 = m8.clone()
+    sms = torch.cuda.get_device_properties(codes.device).multi_processor_count
+    plan = int8_scan_plan(n, qi.shape[0], k, sms, int8_scan_ctas_per_sm(k, codes.device))
+    out = _scan_topk("int8_scan_topk", "rr_int8_scan_topk", codes, qi, m8, n, d, k, plan.smem,
+                     plan.splits, plan.rows_per_split)
     _count(int8_scan_topk, d, k)
     return out
 
@@ -392,6 +458,7 @@ def int8_scores(codes: torch.Tensor, qi: torch.Tensor) -> torch.Tensor:
     if codes.device.type == "cpu":
         return int8_scores_reference(codes, qi)
     _check(codes, qi, None)
+    _check_aligned(codes, qi)
     n, d = codes.shape
     out = _scores("int8_scores", "rr_int8_scores", codes, qi, n, d)
     _count(int8_scores, d)
@@ -443,7 +510,10 @@ def hamming_scan_topk(codes: torch.Tensor, qcodes: torch.Tensor,
     n, w = codes.shape
     smem = hamming_scan_smem_bytes(w, k)
     _check_k(k, smem, f"W={w}")
-    out = _scan_topk("hamming", "rr_hamming_scan_topk", codes, qcodes, m8, n, w, k, smem)
+    sms = torch.cuda.get_device_properties(codes.device).multi_processor_count
+    splits = hamming_scan_splits(n, qcodes.shape[0], k, sms)
+    out = _scan_topk("hamming", "rr_hamming_scan_topk", codes, qcodes, m8, n, w, k, smem,
+                     splits, -(-n // (splits * _TILE)) * _TILE)
     _count(hamming_scan_topk, w, k)
     return out
 

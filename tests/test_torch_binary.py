@@ -134,9 +134,11 @@ def test_int8_scan_topk_reference_matches_pallas_at_k360():
 
 
 def test_scan_k_limits_are_set_by_shared_memory():
-    for d, k in ((384, 240), (1024, 240), (384, 360), (512, 360)):  # the presets' (D, k)
-        assert ck.int8_scan_smem_bytes(d, k) <= ck.SMEM_MAX
-    assert ck.int8_scan_smem_bytes(1024, 512) > ck.SMEM_MAX
+    # the int8 tile's shared memory does not depend on D; the presets reach
+    # k = 240 and 360, and every k up to the cap fits a 32-query CTA
+    for k in (240, 360, ck.INT8_SCAN_TOPK_MAX_K):
+        assert ck.int8_scan_smem_bytes(ck.int8_scan_qb(k), k) <= ck.SMEM_MAX
+    assert ck.int8_scan_smem_bytes(64, ck.INT8_SCAN_TOPK_MAX_K) > ck.SMEM_MAX
     assert ck.hamming_scan_smem_bytes(32, 512) <= ck.SMEM_MAX
     assert ck.INT8_SCAN_TOPK_MAX_K == 512
 

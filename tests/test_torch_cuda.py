@@ -58,14 +58,38 @@ def test_kernels_equal_plain_versions(card, n, d, b, k, lo, hi):
 
 
 @pytest.mark.parametrize("n,d,b,k", [(20_000, 384, 40, 360), (9000, 512, 3, 360),
-                                     (12_000, 1024, 33, 240), (5000, 384, 2, 512)])
+                                     (12_000, 1024, 33, 240), (5000, 384, 2, 512),
+                                     (5000, 1024, 3, 512)])
 def test_int8_scan_topk_at_serving_k(card, n, d, b, k):
-    """The k the presets reach at the auto fused depth (60 x 4.0, 60 x 6.0)."""
+    """The k the presets reach at the auto fused depth (60 x 4.0, 60 x 6.0),
+    and k = 512 at D = 1024, which the 32-query CTA fits."""
     codes, qi, mask = _inputs(n + d + k, n, d, b, -2, 3, card)
     s, r = ck.int8_scan_topk(codes, qi, mask, k)
     torch.cuda.synchronize()
     ps, pr = ck.int8_scan_topk_reference(codes, qi, mask, k)
     assert torch.equal(r, pr) and torch.equal(s, ps)
+
+
+# The tensor-core tile's edges: N not a multiple of its 128 rows, B not a
+# multiple of its query block and B = 1, D = 16 and 48 (K tails short of
+# the 32-byte mma step), k on both sides of the 64 -> 32 query-block switch,
+# a dead 128-row tile inside the dead 512 rows, duplicate rows tied at the
+# k-th score (narrow value ranges).
+@pytest.mark.parametrize("n,d,b,k,lo,hi", [(3001, 16, 65, 40, -127, 128),
+                                           (4099, 48, 7, 100, -2, 3),
+                                           (2177, 48, 1, 16, -1, 2),
+                                           (6000, 64, 65, 363, -2, 3),
+                                           (6000, 64, 65, 364, -2, 3),
+                                           (1500, 96, 130, 300, -1, 2)])
+def test_mma_tile_edges(card, n, d, b, k, lo, hi):
+    assert ck.int8_scan_qb(363) == 64 and ck.int8_scan_qb(364) == 32
+    codes, qi, mask = _inputs(n * 7 + d + k, n, d, b, lo, hi, card)
+    s, r = ck.int8_scan_topk(codes, qi, mask, k)
+    sc = ck.int8_scores(codes, qi)
+    torch.cuda.synchronize()
+    ps, pr = ck.int8_scan_topk_reference(codes, qi, mask, k)
+    assert torch.equal(r, pr) and torch.equal(s, ps)
+    assert torch.equal(sc, ck.int8_scores_reference(codes, qi))
 
 
 def _words(seed, n, w, b, card, ties=True):
@@ -118,9 +142,9 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(card):
         ck.int8_scan_topk(codes[:, :40].contiguous(), qi[:, :40].contiguous(), mask, 10)
     with pytest.raises(TypeError):
         ck.blockmax2(codes.float(), qi, mask)
-    wide, qw, _ = _inputs(2, 2048, 1024, 4, -3, 4, card)
-    with pytest.raises(ValueError, match="shared memory"):
-        ck.int8_scan_topk(wide, qw, None, 512)
+    unaligned = torch.empty(2048 * 64 + 1, dtype=torch.int8, device=card)[1:].view(2048, 64)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ck.int8_scores(unaligned, qi)
     words, q, _ = _words(3, 2048, 12, 4, card)
     with pytest.raises(TypeError):
         ck.hamming_scan_topk(words.to(torch.int64), q, None, 10)

@@ -1,0 +1,83 @@
+"""The int8 scan's launch plan (pure Python, no card): shared memory, query
+block, splits and rows per split for the (D, k) the presets reach, and the
+wrapper's layout constants against the CUDA sources they mirror.
+
+The kernel entry recomputes the shared memory from its own layout and
+refuses a launch planned with another (LAYOUT_MISMATCH); this file keeps the
+Python side of that agreement honest without a card.
+"""
+
+import re
+from pathlib import Path
+
+import pytest
+
+from radiant_rag_tpu_torch.ops import cuda_kernels as ck
+
+CSRC = Path(ck.__file__).resolve().parent.parent / "csrc"
+N = 1 << 20  # the bench corpus at the engine's capacity
+SMS = 132    # H100 SXM
+
+# (D, k) of the presets' scans at the auto fused depth (dense D = 384,
+# preset sketch S = 512, default sketch S = 1024)
+PRESET_SHAPES = [(384, 40), (384, 160), (384, 240), (384, 360), (512, 360),
+                 (1024, 40), (1024, 160), (1024, 240)]
+
+
+def _constant(path: Path, name: str) -> int:
+    m = re.search(rf"constexpr int {name} = (\d+);", path.read_text())
+    assert m, f"{name} not found in {path.name}"
+    return int(m.group(1))
+
+
+def test_layout_constants_match_the_cuda_sources():
+    tile = CSRC / "int8_mma_tile.cuh"
+    assert _constant(tile, "BN") == ck.MMA_ROWS
+    assert _constant(tile, "BK") == ck._MMA_BK
+    assert _constant(tile, "STAGES") == ck._MMA_STAGES
+    scan = CSRC / "int8_scan_topk.cu"
+    assert _constant(scan, "QCAP") == ck._SCAN_QCAP
+    assert _constant(scan, "SMEM_LIMIT") == ck.SMEM_MAX
+
+
+@pytest.mark.parametrize("d,k", PRESET_SHAPES)
+@pytest.mark.parametrize("ctas", [1, 2])
+def test_preset_shapes_fit_and_fill_one_wave(d, k, ctas):
+    plan = ck.int8_scan_plan(N, 2048, k, SMS, ctas)
+    assert plan.smem <= ck.SMEM_MAX == 232_448
+    assert plan.qb == 64
+    assert plan.splits * k <= 4096
+    assert plan.rows_per_split % ck.MMA_ROWS == 0
+    assert plan.splits * plan.rows_per_split >= N
+    # one wave: every CTA of the grid is resident at once, and not more
+    # than one split short of filling the card
+    qblocks = -(-2048 // plan.qb)
+    assert qblocks * plan.splits <= SMS * ctas < qblocks * (plan.splits + 1)
+    assert plan.rows_per_split == N // plan.splits
+
+
+@pytest.mark.parametrize("k,qb", [(1, 64), (40, 64), (256, 64), (257, 64), (360, 64),
+                                  (363, 64), (364, 32), (400, 32), (512, 32)])
+def test_query_block_for_k(k, qb):
+    """64 queries per CTA while their lists fit, 32 above k = 363."""
+    assert ck.int8_scan_qb(k) == qb
+    assert ck.int8_scan_smem_bytes(qb, k) <= ck.SMEM_MAX
+    if qb == 32:
+        assert ck.int8_scan_smem_bytes(64, k) > ck.SMEM_MAX
+
+
+@pytest.mark.parametrize("n,b,k", [(5000, 1, 512), (3001, 65, 40), (70_000, 16, 40),
+                                   (128, 2048, 360), (1, 3, 10), (N, 16, 160), (0, 4, 10)])
+def test_small_and_ragged_plans(n, b, k):
+    plan = ck.int8_scan_plan(n, b, k, SMS, 2)
+    assert plan.splits >= 1 and plan.splits * k <= 4096
+    assert plan.splits <= max(1, -(-n // ck.MMA_ROWS))  # no split without a tile
+    assert plan.rows_per_split > 0 and plan.rows_per_split % ck.MMA_ROWS == 0
+    assert plan.splits * plan.rows_per_split >= n
+    assert n == 0 or (plan.splits - 1) * plan.rows_per_split < n  # the last split has rows
+
+
+def test_smem_does_not_depend_on_d_and_grows_with_k():
+    sizes = [ck.int8_scan_smem_bytes(64, k) for k in (40, 160, 240, 360)]
+    assert sizes == sorted(sizes)
+    assert sizes[1] - sizes[0] == 64 * 120 * 8  # the lists: 64 queries x k x 8 bytes

@@ -191,16 +191,6 @@ def kernel_row(name, label, kernel, plain, args, library, moved, ops, key, libra
     return row
 
 
-def sign_matrix(words):
-    """(rows, W) int32 sign words -> (rows, 32 W) int8 of +-1 (bit set: +1),
-    the operand of the library yardstick: <s_q, s_c> = 32 W - 2 hamming."""
-    import torch
-
-    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
-    bits = (words[:, :, None] >> shifts) & 1
-    return (2 * bits - 1).to(torch.int8).reshape(words.shape[0], -1)
-
-
 def scan_rows(ck, label, codes, qi, mask, k):
     """An int8_scan_topk row at a main-path shape."""
     import torch
@@ -242,21 +232,22 @@ def hamming_rows(ck, codes, qwords, mask, qi, i8):
 
     n, w = codes.shape
     rows = []
-    csign = sign_matrix(codes)
-    qsign = sign_matrix(qwords)
+    # the library's operands: the +-1 sign matrices, <s_q, s_c> = 32 W - 2 hamming
+    csign = ck.sign_matrix(codes)
+    qsign = ck.sign_matrix(qwords)
+
+    def library_mm():
+        sc = torch._int_mm(qsign, csign.T)
+        return sc.masked_fill_(~mask[None, :], torch.iinfo(torch.int32).min)
+
     for k in (60, 240, 360):
         b = qwords.shape[0]
-
-        def library(k=k):
-            sc = torch._int_mm(qsign, csign.T)
-            sc.masked_fill_(~mask[None, :], torch.iinfo(torch.int32).min)
-            return torch.topk(sc, k, dim=1)
-
         rows.append(kernel_row(
             "hamming_scan_topk", f"W={w} B={b} k={k}", ck.hamming_scan_topk,
-            ck.hamming_scan_topk_reference, (codes, qwords, mask, k), library,
+            ck.hamming_scan_topk_reference, (codes, qwords, mask, k),
+            lambda k=k: torch.topk(library_mm(), k, dim=1),
             n * w * 4 + b * w * 4 + n + b * k * 8, 2.0 * b * n * 32 * w,
-            ("hamming_scan_topk", w, k)))
+            ("hamming_scan_topk", w, k), library_mm))
     b = 1024
     q1, qs1 = qwords[:b].contiguous(), qsign[:b].contiguous()
     codes_t = codes.T.contiguous()
@@ -280,11 +271,13 @@ def hamming_rows(ck, codes, qwords, mask, qi, i8):
 
 def phase_edges(ck):
     """Edge shapes of every kernel: ragged N, masked rows and a fully dead
-    512-row tile, forced ties (duplicated rows, narrow value range), W = 24,
-    B = 1, and the k the presets reach at the auto fused depth. For the
-    int8 tensor-core tile (128-row tiles, 64- or 32-query blocks, 32-byte
-    mma steps): N and B off its multiples, D = 16 and 48, k on both sides of
-    the query-block switch (363 | 364) and k = 512 at D = 1024."""
+    512-row tile, forced ties (duplicated rows, narrow value range), B = 1,
+    and the k the presets reach at the auto fused depth. For the tensor-core
+    tile (128-row tiles, 128-, 64- or 32-query blocks, 32-byte mma steps):
+    N and B off its multiples, D = 16 and 48, k on both sides of the
+    query-block switch (363 | 364) and k = 512 at D = 1024; for its sign
+    producer W = 1, 3 and 13 (odd: a half-used last 64-byte slice), 24 and
+    32, with the same k and N, B edges."""
     import torch
 
     check(ck.int8_scan_qb(363) == 64 and ck.int8_scan_qb(364) == 32, "query-block switch moved")
@@ -310,7 +303,10 @@ def phase_edges(ck):
         check_kernel_pair(f"int8_scores edge n={n} d={d} b={b}", ck.int8_scores,
                           ck.int8_scores_reference, (codes, qi))
     hcases = [(20_001, 12, 40, 360, True), (5001, 12, 1, 60, True), (70_001, 24, 65, 240, False),
-              (3000, 12, 8, 512, True), (100, 12, 4, 360, False)]
+              (3000, 12, 8, 512, True), (100, 12, 4, 360, False), (3001, 1, 65, 40, True),
+              (4099, 3, 7, 100, True), (6001, 13, 65, 363, True), (6001, 13, 65, 364, True),
+              (5000, 32, 3, 512, False), (2177, 24, 130, 16, True), (1500, 13, 129, 300, False),
+              (9000, 32, 64, 363, True)]
     for n, w, b, k, ties in hcases:
         words = torch.randint(-2**31, 2**31 - 1, (n, w), dtype=torch.int32, device="cuda",
                               generator=g)
@@ -380,8 +376,8 @@ def small_path_check():
 
 def sass_counts(_build, stem: str):
     """{kernel function: (tensor-core instructions (IMMA, IGMMA), IDP.4A
-    instructions)} in the built library of csrc/<stem>.cu, read from
-    `cuobjdump -sass` (the toolkit's, beside nvcc)."""
+    instructions, POPC instructions)} in the built library of csrc/<stem>.cu,
+    read from `cuobjdump -sass` (the toolkit's, beside nvcc)."""
     bindir = Path(_build.nvcc_path()).parent
     text = subprocess.run([str(bindir / "cuobjdump"), "-sass", str(_build.library_path(stem))],
                           capture_output=True, text=True, timeout=300, check=True).stdout
@@ -390,10 +386,11 @@ def sass_counts(_build, stem: str):
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = [0, 0]
+            counts[fn] = [0, 0, 0]
         elif fn is not None:
             counts[fn][0] += bool(re.search(r"\b(IMMA|IGMMA)\b", line))
             counts[fn][1] += "IDP.4A" in line
+            counts[fn][2] += bool(re.search(r"\bPOPC\b", line))
     filt = bindir / "cu++filt"
     if counts and filt.is_file():
         names = subprocess.run([str(filt)], input="\n".join(counts), capture_output=True,
@@ -404,17 +401,18 @@ def sass_counts(_build, stem: str):
 
 
 def log_sass(_build) -> None:
-    """One line per built library: its kernels' tensor-core and IDP.4A
-    instruction counts. The int8 tensor-core tile's kernels must show the
-    former and none of the latter."""
+    """One line per built library: its kernels' tensor-core, IDP.4A and POPC
+    instruction counts. Every partial or score kernel of the tensor-core
+    tile's libraries must show the first and no IDP.4A (the merge kernel,
+    which sorts, is exempt)."""
     for stem in KERNEL_STEMS:
         counts = sass_counts(_build, stem)
-        log(f"sass {stem}: " + "; ".join(f"{fn} IMMA/IGMMA {t} IDP.4A {i}"
-                                         for fn, (t, i) in counts.items()))
-        if stem in ("int8_scan_topk", "int8_scores"):
-            check(sum(t for t, _ in counts.values()) > 0 and
-                  sum(i for _, i in counts.values()) == 0,
-                  f"{stem}: expected tensor-core instructions and no IDP.4A")
+        log(f"sass {stem}: " + "; ".join(f"{fn} IMMA/IGMMA {t} IDP.4A {i} POPC {p}"
+                                         for fn, (t, i, p) in counts.items()))
+        if stem in ("int8_scan_topk", "int8_scores", "hamming"):
+            tiles = {fn: c for fn, c in counts.items() if "topk_merge" not in fn}
+            check(tiles and all(t > 0 and i == 0 for t, i, _ in tiles.values()),
+                  f"{stem}: expected tensor-core instructions and no IDP.4A in {list(tiles)}")
 
 
 def profile_batch(fn, what: str) -> None:
@@ -526,12 +524,14 @@ def main() -> int:
     log(f"kernel build: {build_s:.2f} s")
     for stem, text in _build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "wgmma")):
                 log(f"  {stem}: {line.strip()}")
     log_sass(_build)
-    log("int8_scan_topk partial CTAs per SM (occupancy API): " + ", ".join(
+    log("scan partial CTAs per SM (occupancy API), int8_scan_topk / hamming: " + ", ".join(
         f"k={k} ({ck.int8_scan_qb(k)} queries, {ck.int8_scan_smem_bytes(ck.int8_scan_qb(k), k)} B)"
-        f" {ck.int8_scan_ctas_per_sm(k, torch.device('cuda'))}" for k in (40, 160, 240, 360, 512)))
+        f" {ck.int8_scan_ctas_per_sm('int8_scan_topk', k, torch.device('cuda'))} / "
+        f"{ck.int8_scan_ctas_per_sm('hamming', k, torch.device('cuda'))}"
+        for k in (40, 60, 160, 240, 360, 512)))
 
     phase_edges(ck)
     torch.cuda.synchronize()

@@ -1,10 +1,14 @@
-// Int8 tensor-core tile of the int8 scans (int8_scores.cu, int8_scan_topk.cu).
+// Int8 tensor-core tile of the int8 scans (int8_scores.cu, int8_scan_topk.cu)
+// and of the Hamming scans (hamming.cu).
 //
 // A CTA of 8 warps (two warpgroups) computes a QB-query x 128-row block of
 // int32 dot products qi . codes^T (QB = 128, 64, or 32 where a caller's
 // shared memory needs it) and walks its rows in 128-row tiles, handing each
-// finished block to an epilogue. The K loop takes D in 64-byte slices, two
-// 32-byte product steps each.
+// finished block to an epilogue. The K loop takes K in 64-byte slices, two
+// 32-byte product steps each. A producer fills the ring: Int8Rows copies
+// int8 rows (K = D bytes); SignWords unpacks packed sign words into +-1
+// bytes (K = 32 W: one byte per bit), so that the same product gives
+// <s_q, s_c> = 32 W - 2 hamming(q, c).
 //
 // Bound on an H100: the int8 operations, 2 * QB * 128 * D per tile, at
 // 1,979 dense int8 TOP/s -- far above what the __dp4a tile (int8_tile.cuh)
@@ -29,6 +33,21 @@
 //   - QB = 128 (int8_scores) halves the code bytes per operation against
 //     QB = 64; the scan keeps 64 because its lists share the shared memory.
 //   - The mask bytes of a tile ride in the ring with its first slice.
+//   - Sign words (SignWords): a slice is 2 words of a row, 8x fewer bytes
+//     read than int8 rows of the same K. There is no shared memory left for
+//     a staging ring of packed words (the scan's lists take it), so each
+//     thread holds the packed words of the next slice in registers (at most
+//     2: 2 words x (QB + 128) rows over 256 threads), loaded one slice
+//     ahead. While the current slice's wgmma runs, the threads unpack them
+//     (bit j of word x -> K byte 32 x + j, +1 where set, -1 where clear)
+//     with st.shared into the free stage, in the same swizzle; the next
+//     barrier's fence.proxy.async makes them visible to the tensor cores.
+//     (ptxas keeps that overlap in the score kernels. In the scans, whose
+//     epilogue reads the accumulators on divergent paths, it serializes
+//     the wgmma instead: its C7520 note in the build log.)
+//     Words that do not exist (queries past B, rows past the range, words
+//     past W) are zero bytes. A 32-byte product step is exactly one word,
+//     so an odd W leaves the last slice's second step out, as a D tail does.
 // Flat offsets are 64-bit.
 #pragma once
 
@@ -43,6 +62,8 @@ constexpr int BK = 64;           // bytes of D per ring slice
 constexpr int STAGES = 3;        // ring depth
 constexpr int THREADS = 256;     // 8 warps
 constexpr int CHUNKS = BK / 16;  // 16-byte chunks per row per slice
+constexpr int SLICE_WORDS = 2;   // sign words per row per slice (one K byte per bit)
+static_assert(SLICE_WORDS * 32 == BK, "a slice holds whole sign words");
 
 // The CTA's 8 warps form two warpgroups, each issuing m64nNk32 products.
 // QB = 128: warpgroup w takes queries [64 w, 64 w + 64) against all 128
@@ -98,8 +119,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// fence.proxy.async: the cp.async writes become visible to the tensor
-// cores' reads (the async proxy) once the CTA has synchronised.
+// fence.proxy.async: the cp.async and st.shared writes become visible to
+// the tensor cores' reads (the async proxy) once the CTA has synchronised.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -161,33 +182,11 @@ __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-// Queue one slice: bytes [kb0, kb0 + 64) of queries [q0, q0 + QB) (slice
-// rows [0, QB)) and of code rows [r0, r0 + 128) (slice rows [QB, QB + 128));
-// and, when tile_mask is set, the tile's 128 mask bytes. Out-of-range chunks
-// are zero-filled (a masked-off or missing row reads as mask byte 0).
-template <int QB>
-__device__ __forceinline__ void load_slice(const int8_t* __restrict__ codes,
-                                           const int8_t* __restrict__ qi,
-                                           const uint8_t* __restrict__ mask, int d, int b,
-                                           int q0, int64_t r0, int64_t r_end, int kb0,
-                                           unsigned char* stage, uint8_t* tile_mask) {
-  const uint32_t base = smem_u32(stage);
-  for (int i = threadIdx.x; i < (QB + BN) * CHUNKS; i += THREADS) {
-    const int row = i / CHUNKS, c = i % CHUNKS;
-    const int kb = kb0 + 16 * c;
-    const int8_t* src;
-    bool ok;
-    if (row < QB) {
-      ok = q0 + row < b && kb < d;
-      src = qi + int64_t(q0 + row) * d + kb;
-    } else {
-      const int64_t r = r0 + (row - QB);
-      ok = r < r_end && kb < d;
-      src = codes + r * d + kb;
-    }
-    cp_async16(base + swz(row, c), ok ? src : codes, ok ? 16 : 0);
-  }
-  if (tile_mask != nullptr && threadIdx.x < BN / 16) {
+// A tile's 128 mask bytes into tile_mask (cp.async); bytes past r_end are
+// zero-filled, so a missing row reads as masked off.
+__device__ __forceinline__ void load_mask(const uint8_t* __restrict__ mask, int64_t r0,
+                                          int64_t r_end, uint8_t* tile_mask) {
+  if (threadIdx.x < BN / 16) {
     const int64_t r = r0 + 16 * threadIdx.x;
     const int64_t left = r_end - r;
     const int bytes = left <= 0 ? 0 : (left >= 16 ? 16 : static_cast<int>(left));
@@ -195,14 +194,143 @@ __device__ __forceinline__ void load_slice(const int8_t* __restrict__ codes,
   }
 }
 
-// acc += the slice's product for this thread's warpgroup (acc = it for the
-// first slice of a tile, so the accumulators need no zeroing between
-// products); `left` = bytes of D from the slice's start (a 32-byte step
-// wholly past D is skipped). With QB = 32 the descriptor's 64 query rows
-// run into the code rows; the fragment's queries 32-63 are ignored by the
-// callers.
+// Producers. A producer fills one ring stage with slice s (K bytes
+// [64 s, 64 s + 64)) of queries [q0, q0 + QB) (stage rows [0, QB)) and of
+// code rows [r0, r0 + 128) (stage rows [QB, QB + 128)):
+//   k_bytes()                       K of one row
+//   fetch(q0, r0, r_end, s)         start reading slice s (before its store)
+//   store(stage, q0, r0, r_end, s)  fill the stage with the fetched slice
+//   kOverlap                        store runs while the product runs
+
+// int8 rows (N, D) and (B, D): cp.async straight into the stage, zero-
+// filled by source size past B, past r_end and past D.
 template <int QB>
-__device__ __forceinline__ void mma_slice(const unsigned char* stage, int left, bool first,
+struct Int8Rows {
+  const int8_t* __restrict__ codes;
+  const int8_t* __restrict__ qi;
+  int d, b;
+  static constexpr bool kOverlap = false;  // the copies run ahead by themselves
+
+  __device__ __forceinline__ int k_bytes() const { return d; }
+  __device__ __forceinline__ void fetch(int, int64_t, int64_t, int) {}
+  __device__ __forceinline__ void store(unsigned char* stage, int q0, int64_t r0,
+                                        int64_t r_end, int s) const {
+    const uint32_t base = smem_u32(stage);
+    const int kb0 = s * BK;
+    for (int i = threadIdx.x; i < (QB + BN) * CHUNKS; i += THREADS) {
+      const int row = i / CHUNKS, c = i % CHUNKS;
+      const int kb = kb0 + 16 * c;
+      const int8_t* src;
+      bool ok;
+      if (row < QB) {
+        ok = q0 + row < b && kb < d;
+        src = qi + int64_t(q0 + row) * d + kb;
+      } else {
+        const int64_t r = r0 + (row - QB);
+        ok = r < r_end && kb < d;
+        src = codes + r * d + kb;
+      }
+      cp_async16(base + swz(row, c), ok ? src : codes, ok ? 16 : 0);
+    }
+  }
+};
+
+// Bits 0-3 of v as 4 bytes of +-1 (byte j: +1 where bit j is set, else -1):
+// the multiply moves bit j to bit 8 j (no carries: the four copies of the
+// nibble do not overlap), 0xFE per byte and the complement give 0x01 / 0xFF.
+__device__ __forceinline__ uint32_t pm1_bytes(uint32_t v) {
+  return ~((((v & 0xFu) * 0x00204081u) & 0x01010101u) * 0xFEu);
+}
+
+// Packed sign words: (N, W) codes, or (W, N) when TRANSPOSED, and (B, W)
+// queries, as 32-bit words (the JAX package's uint32 sign bits). Item i of
+// a slice is one word of one stage row; a thread holds ITEMS of them.
+template <int QB, bool TRANSPOSED>
+struct SignWords {
+  const uint32_t* __restrict__ codes;
+  const uint32_t* __restrict__ q;
+  int64_t n;
+  int w, b;
+  static constexpr int ROWS = QB + BN;
+  static constexpr int ITEMS = (SLICE_WORDS * ROWS + THREADS - 1) / THREADS;
+  static constexpr bool kOverlap = true;
+  uint32_t held[ITEMS];  // the fetched words
+  unsigned live = 0;     // bit j: held[j] is a word that exists
+
+  __device__ __forceinline__ int k_bytes() const { return 32 * w; }
+
+  // Item i -> (stage row, word of the slice). Row-major codes: a row's two
+  // words on neighbouring threads; transposed: neighbouring rows.
+  __device__ static __forceinline__ void item(int i, int& row, int& h) {
+    if (TRANSPOSED) {
+      h = i / ROWS;
+      row = i % ROWS;
+    } else {
+      row = i / SLICE_WORDS;
+      h = i % SLICE_WORDS;
+    }
+  }
+
+  __device__ __forceinline__ void fetch(int q0, int64_t r0, int64_t r_end, int s) {
+    live = 0;
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      held[j] = 0u;
+      if (i < SLICE_WORDS * ROWS) {
+        int row, h;
+        item(i, row, h);
+        const int x = s * SLICE_WORDS + h;
+        if (x < w) {
+          if (row < QB) {
+            if (q0 + row < b) {
+              held[j] = q[int64_t(q0 + row) * w + x];
+              live |= 1u << j;
+            }
+          } else {
+            const int64_t r = r0 + (row - QB);
+            if (r < r_end) {
+              held[j] = TRANSPOSED ? codes[int64_t(x) * n + r] : codes[r * w + x];
+              live |= 1u << j;
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // Word h of the slice is K bytes [32 h, 32 h + 32): chunks 2 h (bits 0-15)
+  // and 2 h + 1 (bits 16-31).
+  __device__ __forceinline__ void store(unsigned char* stage, int, int64_t, int64_t, int) const {
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      if (i < SLICE_WORDS * ROWS) {
+        int row, h;
+        item(i, row, h);
+        const uint32_t v = held[j];
+        const bool ok = (live >> j) & 1u;
+        const uint4 lo = ok ? make_uint4(pm1_bytes(v), pm1_bytes(v >> 4), pm1_bytes(v >> 8),
+                                         pm1_bytes(v >> 12))
+                            : make_uint4(0u, 0u, 0u, 0u);
+        const uint4 hi = ok ? make_uint4(pm1_bytes(v >> 16), pm1_bytes(v >> 20),
+                                         pm1_bytes(v >> 24), pm1_bytes(v >> 28))
+                            : make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(stage + swz(row, 2 * h)) = lo;
+        *reinterpret_cast<uint4*>(stage + swz(row, 2 * h + 1)) = hi;
+      }
+    }
+  }
+};
+
+// Issue the slice's product for this thread's warpgroup, acc += it (acc =
+// it for the first slice of a tile, so the accumulators need no zeroing
+// between products); `left` = bytes of K from the slice's start (a 32-byte
+// step wholly past K is skipped). With QB = 32 the descriptor's 64 query
+// rows run into the code rows; the fragment's queries 32-63 are ignored by
+// the callers. The accumulators are not to be touched until wgmma_wait0.
+template <int QB>
+__device__ __forceinline__ void mma_issue(const unsigned char* stage, int left, bool first,
                                           typename Tile<QB>::Acc& acc) {
   const int wg = threadIdx.x / 128;
   const uint32_t a = smem_u32(stage) + (QB == 128 ? wg * 64 * BK : 0);
@@ -216,21 +344,19 @@ __device__ __forceinline__ void mma_slice(const unsigned char* stage, int left, 
     if (left > 32) wgmma_n64(acc, smem_desc(a + 32), smem_desc(b + 32), 1);
   }
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  wgmma_wait0();
 }
 
 // Stream rows [r_begin, r_end) against queries [q0, q0 + QB) in 128-row
 // tiles; after each tile, epi(acc, first row of the tile, its mask bytes or
 // nullptr) with every thread of the CTA. The epilogue may synchronise the
 // CTA. Uses Tile<QB>::RING_BYTES of shared memory at `ring`.
-template <int QB, class Epilogue>
-__device__ __forceinline__ void scan_tiles(const int8_t* __restrict__ codes,
-                                           const int8_t* __restrict__ qi,
-                                           const uint8_t* __restrict__ mask, int d, int b,
+template <int QB, class Producer, class Epilogue>
+__device__ __forceinline__ void scan_tiles(Producer& prod, const uint8_t* __restrict__ mask,
                                            int q0, int64_t r_begin, int64_t r_end,
                                            unsigned char* ring, Epilogue&& epi) {
   using T = Tile<QB>;
-  const int ks = (d + BK - 1) / BK;  // slices per tile
+  const int kbytes = prod.k_bytes();
+  const int ks = (kbytes + BK - 1) / BK;  // slices per tile
   const int ntiles = r_end > r_begin ? static_cast<int>((r_end - r_begin + BN - 1) / BN) : 0;
   const int64_t total = int64_t(ntiles) * ks;
   uint8_t* masks = ring + STAGES * T::STAGE_BYTES;
@@ -238,15 +364,17 @@ __device__ __forceinline__ void scan_tiles(const int8_t* __restrict__ codes,
   // producer position: slice ld_s of tile ld_t into stage ld_stage
   int64_t issued = 0;
   int ld_t = 0, ld_s = 0, ld_stage = 0;
+  if (total > 0) prod.fetch(q0, r_begin, r_end, 0);
   auto issue = [&]() {
     if (issued < total) {
-      uint8_t* tm = (ld_s == 0 && mask != nullptr) ? masks + (ld_t % STAGES) * BN : nullptr;
-      load_slice<QB>(codes, qi, mask, d, b, q0, r_begin + int64_t(ld_t) * BN, r_end, ld_s * BK,
-                     ring + ld_stage * T::STAGE_BYTES, tm);
+      const int64_t r0 = r_begin + int64_t(ld_t) * BN;
+      prod.store(ring + ld_stage * T::STAGE_BYTES, q0, r0, r_end, ld_s);
+      if (ld_s == 0 && mask != nullptr) load_mask(mask, r0, r_end, masks + (ld_t % STAGES) * BN);
       if (++ld_s == ks) {
         ld_s = 0;
         ++ld_t;
       }
+      if (issued + 1 < total) prod.fetch(q0, r_begin + int64_t(ld_t) * BN, r_end, ld_s);
     }
     cp_async_commit();  // empty groups keep the count aligned
     ++issued;
@@ -264,10 +392,17 @@ __device__ __forceinline__ void scan_tiles(const int8_t* __restrict__ codes,
   int t = 0, s = 0, stage = 0;
   for (int64_t it = 0; it < total; ++it) {
     cp_async_wait<STAGES - 2>();  // slice `it` has landed (this thread's copies)
-    fence_proxy_async();
+    fence_proxy_async();          // (and this thread's st.shared of it)
     __syncthreads();              // ... everyone's; the stage refilled next is consumed
-    issue();
-    mma_slice<QB>(ring + stage * T::STAGE_BYTES, d - s * BK, s == 0, acc);
+    const unsigned char* cur = ring + stage * T::STAGE_BYTES;
+    if constexpr (Producer::kOverlap) {  // fill the free stage under the product
+      mma_issue<QB>(cur, kbytes - s * BK, s == 0, acc);
+      issue();
+    } else {
+      issue();
+      mma_issue<QB>(cur, kbytes - s * BK, s == 0, acc);
+    }
+    wgmma_wait0();
     stage = stage + 1 == STAGES ? 0 : stage + 1;
     if (++s == ks) {
       epi(acc, r_begin + int64_t(t) * BN, mask != nullptr ? masks + (t % STAGES) * BN : nullptr);

@@ -21,7 +21,6 @@ constexpr int PAD = 16;       // bytes added to each shared row: with a row
                               // fall on distinct banks
 constexpr int SCORE_NONE = LIST_NONE;  // masked row / empty slot
 constexpr float NEG = LIST_NEG;        // score of an empty output slot
-static_assert(QB == LIST_QB && TILE == LIST_TILE, "the scan tile feeds topk_list.cuh");
 
 __host__ __device__ constexpr size_t tile_smem_bytes(int d) {
   return size_t(QB) * d + size_t(TILE) * (d + PAD) + size_t(QB) * TILE * 4 + TILE;

@@ -5,14 +5,17 @@
   hamming_scores     csrc/hamming.cu         <- pallas_kernels.hamming_scores_pallas
   hamming_scores_t   csrc/hamming.cu         <- pallas_kernels.hamming_scores_pallas_t
   hamming_scan_topk  csrc/hamming.cu         <- similarity.hamming_scan_topk's scan,
-                                                 the same tile with a top-k epilogue
+                                                 the same product with a top-k epilogue
   int8_scores        csrc/int8_scores.cu     <- pallas_kernels.int8_scores_pallas
 
-`int8_scores` and `int8_scan_topk` run on the int8 tensor-core tile
-(csrc/int8_mma_tile.cuh: wgmma int8 products over 128 rows per CTA, 128
-queries for the scores and 64 (or 32) for the scan, fed from a cp.async
-ring); `blockmax2` keeps the __dp4a tile (csrc/int8_tile.cuh), the Hamming
-kernels their popcount tile.
+All but `blockmax2` run on the int8 tensor-core tile (csrc/int8_mma_tile.cuh:
+wgmma int8 products over 128 rows per CTA, 128 queries for the (B, N) scores
+and 64 (or 32) for the scans). The int8 kernels feed it int8 rows by
+cp.async; the Hamming kernels feed it their sign words unpacked to +-1
+bytes (`sign_matrix` is that operand), since <s_q, s_c> = 32 W - 2 Hamming.
+The scans share one filtered top-k epilogue and launch plan
+(csrc/tc_scan_topk.cuh), the score kernels one staged-store epilogue
+(csrc/tc_scores.cuh). `blockmax2` keeps the __dp4a tile (csrc/int8_tile.cuh).
 
 A wrapper runs the plain PyTorch version only for CPU tensors. For CUDA
 tensors it launches the kernel or raises; nothing falls back. Each wrapper
@@ -20,9 +23,9 @@ counts its launches in `<wrapper>.launches`, and by shape in
 `launches_by_shape[(wrapper name, D or W, k or 0)]`, so a run can show that
 its path went through the kernel, and at which shapes.
 
-The scan wrappers plan a launch in Python (`int8_scan_plan`,
-`hamming_scan_smem_bytes`): shared memory per CTA, to refuse a k that does
-not fit, and the grid. They pass the shared memory to the launch, which
+The scan wrappers plan a launch in Python (`int8_scan_plan`, for both
+scans): shared memory per CTA, to refuse a k that does not fit, and the
+grid. They pass the shared memory to the launch, which
 refuses to run if its own layout needs another size.
 
 The plain versions compute the same function the obvious way: the integer
@@ -48,19 +51,18 @@ from radiant_rag_tpu_torch import _build
 
 NEG = -3.0e38  # score of an empty output slot (pallas_kernels.NEG)
 BLOCKMAX_TILE = 512  # rows per block-max tile: part of the selection semantics
-# Per-query list length of the scan kernels (csrc/topk_list.cuh: 16 slots
-# per lane of the warp that updates a list). Shared memory bounds k further
-# at wide D: see `_check_k`.
+# Per-query list length of the scan kernels: the 32-query CTA's lists fill
+# its shared memory at k = 512 (`int8_scan_smem_bytes`, `_check_k`).
 INT8_SCAN_TOPK_MAX_K = 512
 SMEM_MAX = 232_448  # dynamic shared memory one CTA may use on Hopper (227 KB)
 _MERGE_MAX = 4096  # largest splits * k the merge launch sorts in shared memory
 _REF_QUERY_CHUNK = 256  # query rows per plain-version step (bounds its (B, N) buffer)
 _REF_CELLS = 1 << 25  # (query, row, word) cells per Hamming plain-version step
-_QB, _TILE = 32, 64  # the Hamming kernels' CTA tile (csrc/hamming.cu)
 # the int8 tensor-core tile (csrc/int8_mma_tile.cuh): rows per tile, bytes of
-# D per ring slice, ring stages; and the scan's queue entries per query
-# (csrc/int8_scan_topk.cu)
+# K per ring slice, ring stages; and the scans' queue entries per query
+# (csrc/tc_scan_topk.cuh)
 MMA_ROWS, _MMA_BK, _MMA_STAGES, _SCAN_QCAP = 128, 64, 3, 16
+SIGN_SLICE_WORDS = 2  # sign words per ring slice: one K byte per bit
 _P = ctypes.c_void_p
 _LAYOUT_MISMATCH = -1  # a scan entry's return when its shared-memory layout disagrees
 launches_by_shape: Dict[Tuple[str, int, int], int] = {}
@@ -157,6 +159,16 @@ def hamming_scores_reference(codes: torch.Tensor, qcodes: torch.Tensor) -> torch
 def hamming_scores_t_reference(codes_t: torch.Tensor, qcodes: torch.Tensor) -> torch.Tensor:
     """Plain version of `hamming_scores_t`: the same from (W, N) codes."""
     return _hamming(codes_t.T, qcodes)
+
+
+def sign_matrix(words: torch.Tensor) -> torch.Tensor:
+    """The Hamming kernels' operand: (rows, W) int32 sign words -> (rows,
+    32 W) int8, K byte 32 x + j = +1 where bit j of word x is set, else -1,
+    so that <s_q, s_c> = 32 W - 2 * Hamming(q, c). The tile reads K in
+    slices of SIGN_SLICE_WORDS words; past 32 W it holds zero bytes."""
+    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
+    bits = (words[:, :, None] >> shifts) & 1
+    return (2 * bits - 1).to(torch.int8).reshape(words.shape[0], -1)
 
 
 def hamming_scan_topk_reference(codes: torch.Tensor, qcodes: torch.Tensor,
@@ -274,14 +286,6 @@ def int8_scan_plan(n: int, b: int, k: int, num_sms: int, ctas_per_sm: int) -> Sc
     return ScanPlan(qb, int8_scan_smem_bytes(qb, k), splits, per_split * MMA_ROWS)
 
 
-def hamming_scan_smem_bytes(w: int, k: int) -> int:
-    """Shared memory of one Hamming scan CTA: the query words, the 64-row
-    code tile (row stride W or W + 1, the odd one), the scores, 64 valid
-    flags and the lists."""
-    stride = w if w % 2 else w + 1
-    return 4 * (_QB * w + _TILE * stride + _QB * _TILE) + _TILE + 2 * _QB * k * 4
-
-
 def _check_k(k: int, smem: int, what: str) -> None:
     if not 1 <= k <= INT8_SCAN_TOPK_MAX_K:
         raise ValueError(f"k={k} outside the kernel's 1..{INT8_SCAN_TOPK_MAX_K}")
@@ -320,30 +324,33 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def hamming_scan_splits(n: int, b: int, k: int, num_sms: int) -> int:
-    """Corpus splits of the Hamming scan's partial launch: enough CTAs for
-    two per SM, no more splits than 64-row tiles, and splits * k within the
-    merge's sort."""
-    qblocks = -(-b // _QB)
-    want = -(-2 * num_sms // qblocks)
-    return max(1, min(want, -(-n // _TILE), _MERGE_MAX // k))
+_SCAN_ENTRY = {"int8_scan_topk": "rr_int8_scan_topk", "hamming": "rr_hamming_scan_topk"}
+_ctas_per_sm: Dict[Tuple[str, int, int], int] = {}
 
 
-_ctas_per_sm: Dict[Tuple[int, int], int] = {}
-
-
-def int8_scan_ctas_per_sm(k: int, dev: torch.device) -> int:
-    """Partial CTAs one SM of `dev` holds at list length k, from the
-    occupancy API over the built kernel (its registers and shared memory)."""
-    key = (dev.index if dev.index is not None else torch.cuda.current_device(), k)
+def int8_scan_ctas_per_sm(stem: str, k: int, dev: torch.device) -> int:
+    """Partial CTAs one SM of `dev` holds at list length k for the scan of
+    csrc/<stem>.cu (`int8_scan_topk` or `hamming`), from the occupancy API
+    over the built kernel (its registers and shared memory)."""
+    key = (stem, dev.index if dev.index is not None else torch.cuda.current_device(), k)
     if key not in _ctas_per_sm:
-        fn = _lib("int8_scan_topk", "rr_int8_scan_topk_ctas_per_sm",
-                  [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+        entry = f"{_SCAN_ENTRY[stem]}_ctas_per_sm"
+        fn = _lib(stem, entry, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
         out = ctypes.c_int(0)
         with torch.cuda.device(dev):
-            _raise_on(fn(k, ctypes.byref(out)), "rr_int8_scan_topk_ctas_per_sm")
+            _raise_on(fn(k, ctypes.byref(out)), entry)
         _ctas_per_sm[key] = out.value
     return _ctas_per_sm[key]
+
+
+def _scan_plan(stem: str, n: int, b: int, k: int, dev: torch.device) -> ScanPlan:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return int8_scan_plan(n, b, k, sms, int8_scan_ctas_per_sm(stem, k, dev))
+
+
+def _aligned_mask(m8: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The tile copies mask bytes 16 at a time: a misaligned mask is copied."""
+    return m8.clone() if m8 is not None and m8.data_ptr() % 16 else m8
 
 
 def _count(fn, width: int, k: int = 0) -> None:
@@ -353,26 +360,28 @@ def _count(fn, width: int, k: int = 0) -> None:
     launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
 
 
-def _scan_topk(stem: str, entry: str, codes: torch.Tensor, q: torch.Tensor,
-               m8: Optional[torch.Tensor], n: int, width: int, k: int, smem: int,
-               splits: int, rows_per_split: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch a split scan -> top-k kernel (partial lists, then the merge)
-    whose partial CTA takes `smem` bytes of shared memory."""
+def _scan_topk(stem: str, codes: torch.Tensor, q: torch.Tensor,
+               m8: Optional[torch.Tensor], n: int, width: int, k: int, plan: ScanPlan
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the split scan -> top-k kernel of csrc/<stem>.cu (partial
+    lists, then the merge) on `plan`."""
     b = q.shape[0]
     dev = codes.device
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return out_s, out_r
+    splits = plan.splits
     merge_p = 1 << max(0, (splits * k - 1).bit_length())
     part_s = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
     part_r = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
+    entry = _SCAN_ENTRY[stem]
     fn = _lib(stem, entry,
               [_P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, _P, _P, _P, _P, _P])
     with torch.cuda.device(dev):
         err = fn(codes.data_ptr(), q.data_ptr(), _ptr(m8), n, width, b, k, splits,
-                 rows_per_split, merge_p, smem, part_s.data_ptr(), part_r.data_ptr(),
+                 plan.rows_per_split, merge_p, plan.smem, part_s.data_ptr(), part_r.data_ptr(),
                  out_s.data_ptr(), out_r.data_ptr(), _stream(dev))
     _raise_on(err, entry)
     return out_s, out_r
@@ -407,12 +416,9 @@ def int8_scan_topk(codes: torch.Tensor, qi: torch.Tensor,
     n, d = codes.shape
     _check_k(k, int8_scan_smem_bytes(int8_scan_qb(k), k), f"D={d}")
     _check_aligned(codes, qi)
-    if m8 is not None and m8.data_ptr() % 16:  # its bytes are copied 16 at a time
-        m8 = m8.clone()
-    sms = torch.cuda.get_device_properties(codes.device).multi_processor_count
-    plan = int8_scan_plan(n, qi.shape[0], k, sms, int8_scan_ctas_per_sm(k, codes.device))
-    out = _scan_topk("int8_scan_topk", "rr_int8_scan_topk", codes, qi, m8, n, d, k, plan.smem,
-                     plan.splits, plan.rows_per_split)
+    plan = _scan_plan("int8_scan_topk", n, qi.shape[0], k, codes.device)
+    out = _scan_topk("int8_scan_topk", codes, qi, _aligned_mask(m8), n, d,
+                     k, plan)
     _count(int8_scan_topk, d, k)
     return out
 
@@ -508,12 +514,10 @@ def hamming_scan_topk(codes: torch.Tensor, qcodes: torch.Tensor,
         return hamming_scan_topk_reference(codes, qcodes, mask, k)
     m8 = _check_words(codes, qcodes, mask)
     n, w = codes.shape
-    smem = hamming_scan_smem_bytes(w, k)
-    _check_k(k, smem, f"W={w}")
-    sms = torch.cuda.get_device_properties(codes.device).multi_processor_count
-    splits = hamming_scan_splits(n, qcodes.shape[0], k, sms)
-    out = _scan_topk("hamming", "rr_hamming_scan_topk", codes, qcodes, m8, n, w, k, smem,
-                     splits, -(-n // (splits * _TILE)) * _TILE)
+    _check_k(k, int8_scan_smem_bytes(int8_scan_qb(k), k), f"W={w}")
+    plan = _scan_plan("hamming", n, qcodes.shape[0], k, codes.device)
+    out = _scan_topk("hamming", codes, qcodes, _aligned_mask(m8), n, w,
+                     k, plan)
     _count(hamming_scan_topk, w, k)
     return out
 

@@ -90,7 +90,7 @@ def assert_binary_rows_match(ref_rows, ref_scores, got_rows, got_scores, raw, ma
 
 # -- kernels' plain versions against the Pallas kernels ------------------------
 
-@pytest.mark.parametrize("w", [4, 12])
+@pytest.mark.parametrize("w", [1, 4, 12, 13, 24, 32])
 def test_hamming_references_match_pallas(w):
     rng = np.random.default_rng(w)
     n, b = 2 * pk.TILE_N, 8
@@ -107,6 +107,32 @@ def test_hamming_references_match_pallas(w):
     before = (ck.hamming_scores.launches, ck.hamming_scores_t.launches)
     np.testing.assert_array_equal(ck.hamming_scores(tc, tq).numpy(), ref)  # CPU: plain
     assert (ck.hamming_scores.launches, ck.hamming_scores_t.launches) == before
+
+
+@pytest.mark.parametrize("w", [1, 12, 13, 24, 32])
+def test_sign_product_gives_hamming(w):
+    """The identity the Hamming kernels compute by: with +1 for a set bit
+    and -1 for a clear one, zero-padded to whole 64-bit ring slices as the
+    tensor-core tile reads them, <s_q, s_c> = 32 W - 2 Hamming, which is
+    the Pallas kernel's distance."""
+    rng = np.random.default_rng(100 + w)
+    n, b = pk.TILE_N, 5
+    codes = rng.integers(0, 2**32, (n, w), dtype=np.uint64).astype(np.uint32)
+    q = rng.integers(0, 2**32, (b, w), dtype=np.uint64).astype(np.uint32)
+    ref = np.asarray(pk.hamming_scores_pallas(jnp.asarray(codes), jnp.asarray(q), interpret=True))
+    tc, tq = T(codes.view(np.int32)), T(q.view(np.int32))
+    pad = 32 * (-w % ck.SIGN_SLICE_WORDS)  # K bytes past 32 W in the last slice
+    cs = torch.nn.functional.pad(ck.sign_matrix(tc), (0, pad))
+    qs = torch.nn.functional.pad(ck.sign_matrix(tq), (0, pad))
+    assert cs.shape == (n, 64 * -(-w // ck.SIGN_SLICE_WORDS)) and cs.dtype == torch.int8
+    assert bool((cs[:, :32 * w].abs() == 1).all())
+    dots = qs.to(torch.int64) @ cs.to(torch.int64).T
+    np.testing.assert_array_equal(dots.numpy(), 32 * w - 2 * ref.astype(np.int64))
+    np.testing.assert_array_equal(
+        dots.numpy(), 32 * w - 2 * ck.hamming_scores_reference(tc, tq).numpy().astype(np.int64))
+    # the scan's raw score is the product itself
+    s, r = ck.hamming_scan_topk_reference(tc, tq, None, 7)
+    np.testing.assert_array_equal(s.numpy(), np.take_along_axis(dots.numpy(), r.numpy(), 1))
 
 
 def test_int8_scores_reference_matches_pallas():
@@ -139,7 +165,11 @@ def test_scan_k_limits_are_set_by_shared_memory():
     for k in (240, 360, ck.INT8_SCAN_TOPK_MAX_K):
         assert ck.int8_scan_smem_bytes(ck.int8_scan_qb(k), k) <= ck.SMEM_MAX
     assert ck.int8_scan_smem_bytes(64, ck.INT8_SCAN_TOPK_MAX_K) > ck.SMEM_MAX
-    assert ck.hamming_scan_smem_bytes(32, 512) <= ck.SMEM_MAX
+    # the Hamming scan runs the same tile and lists: its plan takes the same
+    # shared size at every k it is asked for
+    for k in (60, 240, 360, ck.INT8_SCAN_TOPK_MAX_K):
+        plan = ck.int8_scan_plan(1 << 20, 2048, k, 132, 1)
+        assert plan.smem == ck.int8_scan_smem_bytes(ck.int8_scan_qb(k), k) <= ck.SMEM_MAX
     assert ck.INT8_SCAN_TOPK_MAX_K == 512
 
 

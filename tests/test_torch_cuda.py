@@ -105,9 +105,16 @@ def _words(seed, n, w, b, card, ties=True):
             torch.from_numpy(q.view(np.int32)).to(card), torch.from_numpy(mask).to(card))
 
 
+# The sign producer's edges on the tensor-core tile: W = 1, 3 and 13 (odd:
+# the last 64-byte slice is half used), 24 and 32; N off the 128-row tile,
+# B off the 64-query block; k on both sides of the 64 -> 32 query-block
+# switch (363 | 364) and k = 512; ties from few distinct words and duplicates.
 @pytest.mark.parametrize("n,w,b,k,ties", [(20_000, 12, 40, 360, True), (5000, 12, 1, 60, True),
                                           (70_001, 24, 65, 240, False),
-                                          (3000, 12, 8, 512, True), (100, 12, 4, 360, False)])
+                                          (3000, 12, 8, 512, True), (100, 12, 4, 360, False),
+                                          (3001, 1, 65, 40, True), (4099, 3, 7, 100, True),
+                                          (6001, 13, 65, 363, True), (6001, 13, 65, 364, True),
+                                          (5000, 32, 3, 512, False), (1500, 13, 129, 300, False)])
 def test_hamming_scan_topk_equals_plain_version(card, n, w, b, k, ties):
     codes, q, mask = _words(n + k, n, w, b, card, ties)
     before = ck.hamming_scan_topk.launches
@@ -121,7 +128,9 @@ def test_hamming_scan_topk_equals_plain_version(card, n, w, b, k, ties):
     assert ck.launches_by_shape[key] == before_shape + 1
 
 
-@pytest.mark.parametrize("n,w,b", [(5000, 12, 33), (70_001, 24, 1), (4096, 32, 64)])
+@pytest.mark.parametrize("n,w,b", [(5000, 12, 33), (70_001, 24, 1), (4096, 32, 64),
+                                   (3001, 1, 65), (4099, 3, 7), (6001, 13, 130),
+                                   (2049, 32, 129)])
 def test_score_kernels_equal_plain_versions(card, n, w, b):
     codes, q, _ = _words(n + w, n, w, b, card, ties=False)
     h = ck.hamming_scores(codes, q)

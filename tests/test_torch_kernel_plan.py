@@ -1,6 +1,8 @@
-"""The int8 scan's launch plan (pure Python, no card): shared memory, query
-block, splits and rows per split for the (D, k) the presets reach, and the
-wrapper's layout constants against the CUDA sources they mirror.
+"""The scans' launch plan (pure Python, no card): shared memory, query block,
+splits and rows per split for the (D or W, k) the presets reach, and the
+wrapper's layout constants against the CUDA sources they mirror. The int8
+scan and the Hamming scan share the plan (csrc/tc_scan_topk.cuh): the
+Hamming scan is the same tile and epilogue over +-1 bytes of K = 32 W.
 
 The kernel entry recomputes the shared memory from its own layout and
 refuses a launch planned with another (LAYOUT_MISMATCH); this file keeps the
@@ -22,6 +24,9 @@ SMS = 132    # H100 SXM
 # preset sketch S = 512, default sketch S = 1024)
 PRESET_SHAPES = [(384, 40), (384, 160), (384, 240), (384, 360), (512, 360),
                  (1024, 40), (1024, 160), (1024, 240)]
+# the Hamming scan at W = 12 (K = 384 bytes): the binary stage 1's kc at the
+# auto fused depth (60 x 1.0, 4.0, 6.0) and the cap
+HAMMING_SHAPES = [pytest.param(32 * 12, k, id=f"hamming-W12-k{k}") for k in (60, 240, 360, 512)]
 
 
 def _constant(path: Path, name: str) -> int:
@@ -35,17 +40,25 @@ def test_layout_constants_match_the_cuda_sources():
     assert _constant(tile, "BN") == ck.MMA_ROWS
     assert _constant(tile, "BK") == ck._MMA_BK
     assert _constant(tile, "STAGES") == ck._MMA_STAGES
-    scan = CSRC / "int8_scan_topk.cu"
+    assert _constant(tile, "SLICE_WORDS") == ck.SIGN_SLICE_WORDS
+    assert _constant(tile, "SLICE_WORDS") * 32 == ck._MMA_BK  # one K byte per sign bit
+    scan = CSRC / "tc_scan_topk.cuh"
     assert _constant(scan, "QCAP") == ck._SCAN_QCAP
     assert _constant(scan, "SMEM_LIMIT") == ck.SMEM_MAX
+    # both scans launch through the shared plan check and occupancy query
+    for src, stem in (("int8_scan_topk.cu", "int8_scan_topk"), ("hamming.cu", "hamming")):
+        text = (CSRC / src).read_text()
+        assert "scan_topk_launch(" in text and "scan_ctas_per_sm(" in text
+        assert f"{ck._SCAN_ENTRY[stem]}_ctas_per_sm" in text
 
 
-@pytest.mark.parametrize("d,k", PRESET_SHAPES)
+@pytest.mark.parametrize("d,k", PRESET_SHAPES + HAMMING_SHAPES)
 @pytest.mark.parametrize("ctas", [1, 2])
 def test_preset_shapes_fit_and_fill_one_wave(d, k, ctas):
     plan = ck.int8_scan_plan(N, 2048, k, SMS, ctas)
     assert plan.smem <= ck.SMEM_MAX == 232_448
-    assert plan.qb == 64
+    assert plan.smem == ck.int8_scan_smem_bytes(plan.qb, k)  # whatever D or W
+    assert plan.qb == (64 if k <= 363 else 32)
     assert plan.splits * k <= 4096
     assert plan.rows_per_split % ck.MMA_ROWS == 0
     assert plan.splits * plan.rows_per_split >= N

@@ -14,6 +14,11 @@ seed: 1M docs of clustered 384-d vectors and zipfian 48-token texts):
            the BM25 sketch route (fused depth 0 and 40), the block-max
            select, an auto-routed rare-term pages batch and fetch=False
            pipelining;
+  phase 4q the quality-optimized preset (config.quality-optimized.example.yaml:
+           dense_k = bm25_k = 20, fused_k = 30, auto fused depth 120 x
+           rescore multiplier 8.0) over phase 4's engine and BM25 index:
+           kc = 960 on both legs, past the scan kernels' lists, so stage 1
+           takes the exact-product route through `int8_scores`;
   phase 5  the memory-optimized preset (config.memory-optimized.example.yaml:
            no fp32 vectors, binary Hamming stage 1, rescore multiplier 6.0,
            BM25 sketch S = 512) through its store layer: `create_vector_store`
@@ -68,6 +73,16 @@ MEMORY_OPTIMIZED_PRESET = {
     "quantization": {"precision": "binary", "rescore_multiplier": 6.0},
     "bm25": {"sketch_dim": 512},
 }
+# config.quality-optimized.example.yaml, likewise (tests/test_torch_stage1_route.py)
+QUALITY_OPTIMIZED_PRESET = {
+    "quantization": {"rescore_multiplier": 8.0},
+    "retrieval": {"dense_top_k": 20, "bm25_top_k": 20, "fused_top_k": 30},
+    "rerank": {"top_k": 10, "candidate_multiplier": 6},
+    "agentic": {"max_critic_retries": 3},
+    "context_eval": {"use_llm": True},
+    "pipeline": {"use_expansion": True, "use_multihop": True},
+}
+QUALITY_BATCHES = 2
 
 KERNEL_STEMS = ("blockmax2", "hamming", "int8_scan_topk", "int8_scores")  # csrc/<stem>.cu
 PALLAS = "radiant_rag_tpu/ops/pallas_kernels.py"
@@ -192,7 +207,26 @@ def kernel_row(name, label, kernel, plain, args, library, moved, ops, key, libra
 
 
 def scan_rows(ck, label, codes, qi, mask, k):
-    """An int8_scan_topk row at a main-path shape."""
+    """An int8_scan_topk row at a main-path shape. `torch._int_mm` takes
+    more than 16 rows: at B <= 16 the library's queries are zero-padded to
+    17 and its scores cut back to B."""
+    import torch
+
+    n, d = codes.shape
+    b = qi.shape[0]
+    ql = qi if b > 16 else torch.nn.functional.pad(qi, (0, 0, 0, 17 - b))
+
+    def library_mm():
+        sc = torch._int_mm(ql, codes.T)[:b]
+        return sc.masked_fill_(~mask[None, :], torch.iinfo(torch.int32).min)
+
+    return kernel_row("int8_scan_topk", label, ck.int8_scan_topk, ck.int8_scan_topk_reference,
+                      (codes, qi, mask, k), lambda: torch.topk(library_mm(), k, dim=1),
+                      n * d + b * d + n + b * k * 8, 2.0 * b * n * d,
+                      ("int8_scan_topk", d, k, b), library_mm)
+
+
+def blockmax_row(ck, label, codes, qi, mask):
     import torch
 
     n, d = codes.shape
@@ -202,32 +236,17 @@ def scan_rows(ck, label, codes, qi, mask, k):
         sc = torch._int_mm(qi, codes.T)
         return sc.masked_fill_(~mask[None, :], torch.iinfo(torch.int32).min)
 
-    return kernel_row("int8_scan_topk", label, ck.int8_scan_topk, ck.int8_scan_topk_reference,
-                      (codes, qi, mask, k), lambda: torch.topk(library_mm(), k, dim=1),
-                      n * d + b * d + n + b * k * 8, 2.0 * b * n * d, ("int8_scan_topk", d, k),
-                      library_mm)
-
-
-def blockmax_row(ck, label, codes, qi, mask):
-    import torch
-
-    n, d = codes.shape
-    b = qi.shape[0]
-
-    def library():
-        sc = torch._int_mm(qi, codes.T)
-        sc.masked_fill_(~mask[None, :], torch.iinfo(torch.int32).min)
-        return torch.topk(sc.view(sc.shape[0], -1, 512), 2, dim=2)
-
     return kernel_row("blockmax2", label, ck.blockmax2, ck.blockmax2_reference,
-                      (codes, qi, mask), library, n * d + b * d + n + b * 2 * (n // 512) * 8,
-                      2.0 * b * n * d, ("blockmax2", d, 0))
+                      (codes, qi, mask),
+                      lambda: torch.topk(library_mm().view(b, -1, 512), 2, dim=2),
+                      n * d + b * d + n + b * 2 * (n // 512) * 8, 2.0 * b * n * d,
+                      ("blockmax2", d, 0, b), library_mm)
 
 
-def hamming_rows(ck, codes, qwords, mask, qi, i8):
-    """The Hamming kernels and int8_scores at the main path's inputs: the
-    engine's sign words and int8 codes, the batch's packed / quantized
-    queries (B = 2048 for the fused scan, 1024 for the (B, N) outputs)."""
+def hamming_rows(ck, codes, qwords, mask):
+    """The Hamming kernels at the main path's inputs: the engine's sign
+    words, the batch's packed queries (B = 2048 for the fused scan, 1024 for
+    the (B, N) outputs, which no main path runs)."""
     import torch
 
     n, w = codes.shape
@@ -247,7 +266,7 @@ def hamming_rows(ck, codes, qwords, mask, qi, i8):
             ck.hamming_scan_topk_reference, (codes, qwords, mask, k),
             lambda k=k: torch.topk(library_mm(), k, dim=1),
             n * w * 4 + b * w * 4 + n + b * k * 8, 2.0 * b * n * 32 * w,
-            ("hamming_scan_topk", w, k), library_mm))
+            ("hamming_scan_topk", w, k, b), library_mm))
     b = 1024
     q1, qs1 = qwords[:b].contiguous(), qsign[:b].contiguous()
     codes_t = codes.T.contiguous()
@@ -255,18 +274,22 @@ def hamming_rows(ck, codes, qwords, mask, qi, i8):
     moved = n * w * 4 + b * w * 4 + b * n * 4
     rows.append(kernel_row("hamming_scores", f"W={w} B={b}", ck.hamming_scores,
                            ck.hamming_scores_reference, (codes, q1), hlib, moved,
-                           2.0 * b * n * 32 * w, ("hamming_scores", w, 0)))
+                           2.0 * b * n * 32 * w, ("hamming_scores", w, 0, b)))
     rows.append(kernel_row("hamming_scores_t", f"W={w} B={b} (W, N) codes",
                            ck.hamming_scores_t, ck.hamming_scores_t_reference, (codes_t, q1),
-                           hlib, moved, 2.0 * b * n * 32 * w, ("hamming_scores_t", w, 0)))
-    del csign, codes_t
-    qi1 = qi[:b].contiguous()
-    d = i8.shape[1]
-    rows.append(kernel_row("int8_scores", f"D={d} B={b}", ck.int8_scores,
-                           ck.int8_scores_reference, (i8, qi1),
-                           lambda: torch._int_mm(qi1, i8.T), n * d + b * d + b * n * 4,
-                           2.0 * b * n * d, ("int8_scores", d, 0)))
+                           hlib, moved, 2.0 * b * n * 32 * w, ("hamming_scores_t", w, 0, b)))
     return rows
+
+
+def scores_row(ck, label, codes, qi):
+    """An int8_scores row: the (B, N) product of the exact-product route."""
+    import torch
+
+    n, d = codes.shape
+    b = qi.shape[0]
+    return kernel_row("int8_scores", f"{label} B={b}", ck.int8_scores, ck.int8_scores_reference,
+                      (codes, qi), lambda: torch._int_mm(qi, codes.T),
+                      n * d + b * d + b * n * 4, 2.0 * b * n * d, ("int8_scores", d, 0, b))
 
 
 def phase_edges(ck):
@@ -274,10 +297,13 @@ def phase_edges(ck):
     512-row tile, forced ties (duplicated rows, narrow value range), B = 1,
     and the k the presets reach at the auto fused depth. For the tensor-core
     tile (128-row tiles, 128-, 64- or 32-query blocks, 32-byte mma steps):
-    N and B off its multiples, D = 16 and 48, k on both sides of the
-    query-block switch (363 | 364) and k = 512 at D = 1024; for its sign
-    producer W = 1, 3 and 13 (odd: a half-used last 64-byte slice), 24 and
-    32, with the same k and N, B edges."""
+    N and B off its multiples (B = 129, 255 for the block-max's 128-query
+    block), D = 16 and 48, D = 100 (zero-padded to 112 by the wrappers) and
+    D = 1536, k on both sides of the query-block switch (363 | 364) and
+    k = 512 at D = 1024; for its sign producer W = 1, 3 and 13 (odd: a
+    half-used last 64-byte slice), 24, 32 and 48, with the same k and N, B
+    edges. Then `blockmax2` past the old 65535-tile grid and stage 1 past
+    k = 512."""
     import torch
 
     check(ck.int8_scan_qb(363) == 64 and ck.int8_scan_qb(364) == 32, "query-block switch moved")
@@ -288,7 +314,12 @@ def phase_edges(ck):
              (12_000, 1024, 33, 240, -2, 3), (5000, 384, 1, 512, -1, 2),
              (3001, 16, 65, 40, -127, 128), (4099, 48, 7, 100, -2, 3),
              (2177, 48, 1, 16, -1, 2), (6000, 64, 65, 363, -2, 3),
-             (6000, 64, 65, 364, -2, 3), (5000, 1024, 3, 512, -1, 2)]
+             (6000, 64, 65, 364, -2, 3), (5000, 1024, 3, 512, -1, 2),
+             # D past 1024 and D off 16 (padded by the wrappers); B off the
+             # block-max kernel's 128-query block
+             (5000, 1536, 33, 40, -127, 128), (3000, 1536, 3, 360, -2, 3),
+             (4099, 100, 65, 100, -2, 3), (2177, 100, 130, 240, -127, 128),
+             (70_000, 384, 129, 160, -1, 2), (9000, 64, 255, 40, -2, 3)]
     for n, d, b, k, lo, hi in cases:
         codes = torch.randint(lo, hi, (n, d), dtype=torch.int8, device="cuda", generator=g)
         codes[n // 2: n // 2 + 7] = codes[11]  # exact duplicates: ties at one score
@@ -306,7 +337,7 @@ def phase_edges(ck):
               (3000, 12, 8, 512, True), (100, 12, 4, 360, False), (3001, 1, 65, 40, True),
               (4099, 3, 7, 100, True), (6001, 13, 65, 363, True), (6001, 13, 65, 364, True),
               (5000, 32, 3, 512, False), (2177, 24, 130, 16, True), (1500, 13, 129, 300, False),
-              (9000, 32, 64, 363, True)]
+              (9000, 32, 64, 363, True), (6001, 48, 65, 100, False)]
     for n, w, b, k, ties in hcases:
         words = torch.randint(-2**31, 2**31 - 1, (n, w), dtype=torch.int32, device="cuda",
                               generator=g)
@@ -326,6 +357,68 @@ def phase_edges(ck):
                           ck.hamming_scores_t_reference, (words.T.contiguous(), q))
     log(f"edge shapes: {len(cases)} int8 cases x 3 kernels, {len(hcases)} Hamming cases x 3 "
         "kernels, all exact")
+    blockmax_past_tile_cap(ck, g)
+    product_route_edges(ck, g)
+
+
+def blockmax_past_tile_cap(ck, g):
+    """blockmax2 at 65,536 x 512 + 700 rows (D = 16, B = 3; 537 MB of codes):
+    more 512-row tiles than a grid dimension of 65535 holds."""
+    import torch
+
+    n, d, b = 65_536 * 512 + 700, 16, 3
+    codes = torch.randint(-2, 3, (n, d), dtype=torch.int8, device="cuda", generator=g)
+    qi = torch.randint(-2, 3, (b, d), dtype=torch.int8, device="cuda", generator=g)
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    mask[-1200:-900] = False
+    check_kernel_pair(f"blockmax2 n={n} d={d} b={b}", ck.blockmax2, ck.blockmax2_reference,
+                      (codes, qi, mask))
+    log(f"blockmax2 past the old 65535-tile grid: {-(-n // 512)} tiles, exact")
+
+
+def product_route_edges(ck, g):
+    """Stage 1 past the scan kernels' lists (k = 513, 960): the exact-product
+    route of `similarity.scan_select` / `hamming_scan_topk` against the scans'
+    plain versions, in steps of 16 queries under a budget, and in one step
+    under the card's measured free memory."""
+    import torch
+
+    from radiant_rag_tpu_torch.ops import similarity as sim
+
+    n, b = 20_001, 40
+    measured = sim.route_budget
+    check(sim.product_query_block(n, b, measured(torch.device("cuda"))) == b, "route budget")
+    for k in (513, 960):
+        codes = torch.randint(-2, 3, (n, 384), dtype=torch.int8, device="cuda", generator=g)
+        codes[n // 2: n // 2 + 7] = codes[11]
+        qi = torch.randint(-2, 3, (b, 384), dtype=torch.int8, device="cuda", generator=g)
+        mask = torch.ones(n, dtype=torch.bool, device="cuda")
+        mask[1024:1536] = False
+        ref = ck.int8_scan_topk_reference(codes, qi, mask, k)
+        for steps in (3, 1):
+            if steps > 1:
+                sim.route_budget = lambda device: 16 * n * sim.SCORE_BYTES_PER_CELL
+            before = (ck.int8_scan_topk.launches, ck.int8_scores.launches)
+            out = sim.scan_select(codes, qi, mask, k, "f32")
+            sim.route_budget = measured
+            torch.cuda.synchronize()
+            check((ck.int8_scan_topk.launches, ck.int8_scores.launches)
+                  == (before[0], before[1] + steps), "product route launches")
+            same(out, ref)
+        words = torch.randint(-2**31, 2**31 - 1, (n, 12), dtype=torch.int32, device="cuda",
+                              generator=g) & 0x0F0F0F0F
+        q = torch.randint(-2**31, 2**31 - 1, (b, 12), dtype=torch.int32, device="cuda",
+                          generator=g)
+        raw, rows = ck.hamming_scan_topk_reference(words, q, mask, k)
+        before = (ck.hamming_scan_topk.launches, ck.hamming_scores.launches)
+        s, r = sim.hamming_scan_topk(words, q, mask, k)
+        torch.cuda.synchronize()
+        check((ck.hamming_scan_topk.launches, ck.hamming_scores.launches)
+              == (before[0], before[1] + 1), "Hamming product route launches")
+        inv = float(torch.tensor(1.0 / 384, dtype=torch.float32))
+        same((s, r), (torch.where(rows >= 0, raw * inv, sim.NEG_INF), rows))
+    log("stage 1 at k = 513, 960: the exact-product route (int8 and Hamming) == the plain "
+        "versions")
 
 
 def small_path_check():
@@ -409,7 +502,7 @@ def log_sass(_build) -> None:
         counts = sass_counts(_build, stem)
         log(f"sass {stem}: " + "; ".join(f"{fn} IMMA/IGMMA {t} IDP.4A {i} POPC {p}"
                                          for fn, (t, i, p) in counts.items()))
-        if stem in ("int8_scan_topk", "int8_scores", "hamming"):
+        if stem in ("int8_scan_topk", "int8_scores", "hamming", "blockmax2"):
             tiles = {fn: c for fn, c in counts.items() if "topk_merge" not in fn}
             check(tiles and all(t > 0 and i == 0 for t, i, _ in tiles.values()),
                   f"{stem}: expected tensor-core instructions and no IDP.4A in {list(tiles)}")
@@ -532,6 +625,10 @@ def main() -> int:
         f" {ck.int8_scan_ctas_per_sm('int8_scan_topk', k, torch.device('cuda'))} / "
         f"{ck.int8_scan_ctas_per_sm('hamming', k, torch.device('cuda'))}"
         for k in (40, 60, 160, 240, 360, 512)))
+    bm_note = "C7520" in _build.build_log.get("blockmax2", "")
+    log(f"blockmax2: {ck.blockmax2_ctas_per_sm(torch.device('cuda'))} CTAs per SM (occupancy "
+        f"API) at {ck.mma_ring_bytes(ck.BLOCKMAX_QB)} B of shared memory; ptxas C7520 note: "
+        f"{'yes' if bm_note else 'no'}")
 
     phase_edges(ck)
     torch.cuda.synchronize()
@@ -542,6 +639,7 @@ def main() -> int:
     from radiant_rag_tpu_torch.index.engine import DeviceVectorIndex
     from radiant_rag_tpu_torch.index.hybrid import HybridSearcher
     from radiant_rag_tpu_torch.ops import quantize as qz
+    from radiant_rag_tpu_torch.ops import similarity as sim
     from radiant_rag_tpu_torch.ops.similarity import quantize_queries
 
     t0 = time.perf_counter()
@@ -585,6 +683,8 @@ def main() -> int:
     qind = torch.from_numpy(bm.make_query_indicator(tb, bm.query_tids(tb))).cuda()
     mask = eng.valid.clone()
     krows = [scan_rows(ck, "dense D=384 k=40", eng.i8, qi_dense, mask, 4 * TOP_K),
+             scan_rows(ck, "dense D=384 k=40 B=16 (rare-term batch)", eng.i8,
+                       qi_dense[:16].contiguous(), mask, 4 * TOP_K),
              scan_rows(ck, "dense D=384 k=160", eng.i8, qi_dense, mask, 4 * FUSED_DEPTH),
              scan_rows(ck, "dense D=384 k=360", eng.i8, qi_dense, mask, 360),
              scan_rows(ck, "sketch S=1024 k=40", bm._sketch, qind, mask, 4 * TOP_K),
@@ -592,7 +692,13 @@ def main() -> int:
              scan_rows(ck, "sketch S=1024 k=240", bm._sketch, qind, mask, 240),
              blockmax_row(ck, "dense D=384 blockmax", eng.i8, qi_dense, mask),
              blockmax_row(ck, "sketch S=1024 blockmax", bm._sketch, qind, mask)]
-    krows += hamming_rows(ck, eng.codes, qwords, mask, qi_dense, eng.i8)
+    krows += hamming_rows(ck, eng.codes, qwords, mask)
+    # phase 4q's exact-product route runs int8_scores on both legs, a block
+    # of queries at a time as the card's free memory allows (the block is
+    # part of each row's key: a step of another size fails the shape check)
+    step = sim.product_query_block(eng.capacity, BATCH, sim.route_budget(eng.device))
+    krows += [scores_row(ck, "dense D=384", eng.i8, qi_dense[:step].contiguous()),
+              scores_row(ck, f"sketch S={bm.sketch_dim}", bm._sketch, qind[:step].contiguous())]
     del qi_dense, qind, mask, qwords, q16
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -600,7 +706,7 @@ def main() -> int:
     # phase 4: the main path. Counts are set to 0 just before each run and
     # read just after; comparison launches above and below do not count.
     launches = {fn.__name__: 0 for fn in ck.KERNELS}
-    shape_launches = {}  # (kernel, D or W, k or 0) -> main-path launches
+    shape_launches = {}  # (kernel, D or W, k or 0, B) -> main-path launches
 
     def run(label, fn, n_batches):
         ck.reset_launches()
@@ -635,6 +741,7 @@ def main() -> int:
     check(d["int8_scan_topk"] == 2 * N_BATCHES)
     resbm, d = run("sketch route, select=blockmax", lambda: batches(0, "blockmax", 2), 2)
     check(d["blockmax2"] == 4 and d["int8_scan_topk"] == 0, d)
+    profile_batch(lambda: batches(0, "blockmax", 1), "one select=blockmax batch")
 
     # a small rare-term batch the router sends to the exact pages route
     lengths = np.diff(bm._term_start)
@@ -695,14 +802,14 @@ def main() -> int:
         for r in res0[0]["bm25"][1][i]:
             if r >= 0:
                 check(words & set(texts[r].split()), (i, r))
+    phase_quality(ck, run, searcher, queries, qtexts, exact0)
     del searcher, eng, bm, res0, res40, resbm, resp, respipe
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
     krows += phase_memory_optimized(ck, run, launches, vecs, texts, queries, qtexts)
 
-    # each row gets the main-path launches at its own shape (the dense
-    # D = 384, k = 40 row includes the B = 16 pages-route batch)
+    # each row gets the main-path launches at its own shape
     row_keys = [row.pop("_key") for row in krows]
     check(len(set(row_keys)) == len(row_keys), "two kernel rows at one shape")
     for row, key in zip(krows, row_keys):
@@ -711,16 +818,86 @@ def main() -> int:
           f"main-path launches at shapes no row measured: {set(shape_launches) - set(row_keys)}")
     log(f"main-path launches by shape: "
         f"{json.dumps({'/'.join(map(str, k)): v for k, v in sorted(shape_launches.items())})}")
-    on_path = ("int8_scan_topk", "blockmax2", "hamming_scan_topk")
+    on_path = ("int8_scan_topk", "blockmax2", "hamming_scan_topk", "int8_scores")
     for name in on_path:
         check(launches[name] > 0, f"kernel {name} was never launched on a main path")
-    log(f"main-path launches: {json.dumps(launches)} (hamming_scores, hamming_scores_t and "
-        "int8_scores have no caller on a main path)")
+    log(f"main-path launches: {json.dumps(launches)} (hamming_scores and hamming_scores_t have "
+        "no caller on these main paths; hamming_scores is the binary stage 1 past k = 512)")
     log(f"total run time: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": krows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def phase_quality(ck, run, searcher, queries, qtexts, exact0):
+    """Phase 4q: the quality-optimized preset over phase 4's engine and BM25
+    index. Its fused depth 120 x multiplier 8.0 asks stage 1 for kc = 960
+    candidates on both legs: the exact-product route (`int8_scores` a block
+    of queries at a time, then the top-k), no scan launch."""
+    import torch
+
+    from radiant_rag_tpu_torch.config import config_from_dict
+    from radiant_rag_tpu_torch.index.hybrid import resolve_fused_depth
+    from radiant_rag_tpu_torch.ops import similarity as sim
+
+    cfg = config_from_dict(QUALITY_OPTIMIZED_PRESET)
+    r = cfg.retrieval
+    depth, mult = resolve_fused_depth(r), cfg.quantization.rescore_multiplier
+    kc = int(round(depth * mult))
+    check((r.dense_top_k, r.bm25_top_k, r.fused_top_k, depth, mult, kc)
+          == (20, 20, 30, 120, 8.0, 960), (r, depth, mult))
+    eng, bm = searcher.engine, searcher.bm25
+
+    def batch(i):
+        return searcher.search_rows(
+            queries[i * BATCH:(i + 1) * BATCH], qtexts[i * BATCH:(i + 1) * BATCH],
+            dense_k=r.dense_top_k, bm25_k=r.bm25_top_k, fused_k=r.fused_top_k, mode="int8",
+            fused_depth=depth, rescore_multiplier=mult)
+
+    torch.cuda.reset_peak_memory_stats()
+    batch(0)  # warm-up
+    res, d = run(f"quality preset: search_rows int8, fused depth {depth}, x{mult} (kc {kc})",
+                 lambda: [batch(i) for i in range(QUALITY_BATCHES)], QUALITY_BATCHES)
+    check(d["int8_scan_topk"] == 0 and d["blockmax2"] == 0, d)
+    shapes = dict(ck.launches_by_shape)
+    check(sum(n for (name, d, _k, _b), n in shapes.items()
+              if name == "int8_scores" and d == DIM) >= QUALITY_BATCHES
+          and sum(n for (name, d, _k, _b), n in shapes.items()
+                  if name == "int8_scores" and d == bm.sketch_dim) >= QUALITY_BATCHES,
+          f"expected int8_scores on both legs, got {shapes}")
+    check(not any(key[0] == "int8_scan_topk" for key in shapes), shapes)
+    peak = torch.cuda.max_memory_allocated()
+    profile_batch(lambda: batch(0), "one quality-preset batch")
+    budget = sim.route_budget(eng.device)
+    step = sim.product_query_block(eng.capacity, BATCH, budget)
+    log(f"quality preset: int8_scores launches {shapes}; query block {step} of {BATCH} "
+        f"(measured budget {budget / 2**30:.1f} GiB); max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
+    for out in res:
+        for leg, k in (("dense", r.dense_top_k), ("bm25", r.bm25_top_k), ("fused", r.fused_top_k)):
+            s, rows = out[leg]
+            check(s.shape == (BATCH, k) and rows.shape == (BATCH, k), ("quality", leg))
+            live = rows >= 0
+            check(np.isfinite(s[live]).all() and (rows < N_DOCS).all(), ("quality", leg))
+            check(live[:, 0].all(), f"quality {leg}: a query returned nothing")
+    recall = recall_at_10(res[0]["dense"][1][:, :TOP_K], exact0)
+    log(f"quality preset dense recall@10 vs exact: {recall:.4f}")
+    check(recall >= 0.9, recall)
+
+    # the route alone at the batch's shapes (stage 1 of each leg, kc = 960)
+    from radiant_rag_tpu_torch.ops import quantize as qz
+    from radiant_rag_tpu_torch.ops.similarity import quantize_queries
+
+    tb = qtexts[:BATCH]
+    q16 = torch.from_numpy(queries[:BATCH].astype(np.float16).astype(np.float32)).cuda()
+    qi, _ = quantize_queries(q16, qz.int8_scale_offset(eng.i8_lo, eng.i8_hi)[0])
+    qind = torch.from_numpy(bm.make_query_indicator(tb, bm.query_tids(tb))).cuda()
+    for label, codes, q in (("dense D=384", eng.i8, qi), (f"sketch S={bm.sketch_dim}",
+                                                           bm._sketch, qind)):
+        ms = cuda_ms(lambda: sim.scan_select(codes, q, eng.valid, kc, "f32"), reps=2)
+        log(f"quality preset stage 1 {label} B={BATCH} k={kc} (int8_scores + top-k): "
+            f"{ms:.3f} ms")
 
 
 def phase_memory_optimized(ck, run, launches, vecs, texts, queries, qtexts):

@@ -49,15 +49,20 @@ CAPACITY_QUANTUM = 1 << 16
 #    top-k kernels, which hold no (B, N) buffer, so no select policy trades
 #    memory for speed and the default policy is the fused kernel at every
 #    capacity;
-#  - the only (B, N) transients left are the exact path and the BM25 pages
-#    route: an f32 score matrix, its masked copy and the int64 order keys
-#    of `similarity.topk_first`, 24 bytes per cell at the peak;
+#  - the only (B, N) transients left are the exact path, the BM25 pages
+#    route and a stage 1 deeper than the scan kernel's lists (the exact-
+#    product route of `similarity.scan_select`): an f32 or int32 score
+#    matrix, its masked copy and the int64 order keys of the top-k, 24
+#    bytes per cell at the peak (`similarity.SCORE_BYTES_PER_CELL`);
 #  - usable memory is the card's total (torch.cuda.mem_get_info) less 8 GiB
 #    for the CUDA context, the allocator's slack and the outputs, and the
 #    transient budget is what the resident corpus leaves of it. There is no
 #    separate cap: eager PyTorch frees each transient as it goes.
 # At 1M rows this admits a 2048-query bucket (2048 x 2^20 x 24 B = 51.5 GB).
-SCORE_BYTES_PER_CELL = 24
+# The exact-product route is not gated: it steps through the batch a block
+# of queries at a time within the card's measured free memory
+# (`similarity.route_budget`).
+SCORE_BYTES_PER_CELL = sim.SCORE_BYTES_PER_CELL
 HEADROOM_BYTES = 8 << 30
 CPU_USABLE_BYTES = 16 << 30  # test-size runs on the CPU
 

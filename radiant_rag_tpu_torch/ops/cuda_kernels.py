@@ -8,33 +8,39 @@
                                                  the same product with a top-k epilogue
   int8_scores        csrc/int8_scores.cu     <- pallas_kernels.int8_scores_pallas
 
-All but `blockmax2` run on the int8 tensor-core tile (csrc/int8_mma_tile.cuh:
-wgmma int8 products over 128 rows per CTA, 128 queries for the (B, N) scores
-and 64 (or 32) for the scans). The int8 kernels feed it int8 rows by
+All run on the int8 tensor-core tile (csrc/int8_mma_tile.cuh: wgmma int8
+products over 128 rows per CTA, 128 queries for the (B, N) scores and the
+block-max, 64 (or 32) for the scans). The int8 kernels feed it int8 rows by
 cp.async; the Hamming kernels feed it their sign words unpacked to +-1
 bytes (`sign_matrix` is that operand), since <s_q, s_c> = 32 W - 2 Hamming.
 The scans share one filtered top-k epilogue and launch plan
 (csrc/tc_scan_topk.cuh), the score kernels one staged-store epilogue
-(csrc/tc_scores.cuh). `blockmax2` keeps the __dp4a tile (csrc/int8_tile.cuh).
+(csrc/tc_scores.cuh); `blockmax2` keeps a per-query top-2 in registers.
 
 A wrapper runs the plain PyTorch version only for CPU tensors. For CUDA
 tensors it launches the kernel or raises; nothing falls back. Each wrapper
 counts its launches in `<wrapper>.launches`, and by shape in
-`launches_by_shape[(wrapper name, D or W, k or 0)]`, so a run can show that
-its path went through the kernel, and at which shapes.
+`launches_by_shape[(wrapper name, D or W, k or 0, B)]`, so a run can show
+that its path went through the kernel, and at which shapes.
 
-The scan wrappers plan a launch in Python (`int8_scan_plan`, for both
-scans): shared memory per CTA, to refuse a k that does not fit, and the
-grid. They pass the shared memory to the launch, which
-refuses to run if its own layout needs another size.
+The scan and block-max wrappers plan a launch in Python (`int8_scan_plan`,
+`blockmax2_plan`): shared memory per CTA, to refuse a k that does not fit,
+and a one-wave grid. They pass the plan to the launch, which refuses to run
+if its own layout needs another.
+
+Widths. The tile copies rows in 16-byte chunks, so where D % 16 != 0 the
+int8 wrappers zero-pad codes and queries to the next multiple of 16 for the
+call (the pad adds 0 to every dot). Accumulation is int32, which holds
+|score| <= 128^2 * D exactly for D < 2^17 (and 32 W for W < 2^12).
 
 The plain versions compute the same function the obvious way: the integer
-dot products as an fp32 matmul (exact: |score| <= 127 * 128 * D < 2^24 for
-D <= 1024, so every partial sum is an exactly representable integer), then a
-top-k over unique int64 keys (score, then row ascending) so that ties break
-by the lowest row exactly as the kernels and `lax.top_k` do. The Hamming
-plain versions take the popcount of `torch.bitwise_xor` by bit arithmetic
-on int64 (a SWAR popcount), a block of queries and rows at a time.
+dot products as a float matmul (fp32 up to D = 1024, where |score| <=
+127 * 128 * D < 2^24 keeps every partial sum an exactly representable
+integer; float64 above), then a top-k over unique int64 keys (score, then
+row ascending) so that ties break by the lowest row exactly as the kernels
+and `lax.top_k` do. The Hamming plain versions take the
+popcount of `torch.bitwise_xor` by bit arithmetic on int64 (a SWAR
+popcount), a block of queries and rows at a time.
 
 Sign codes are int32 tensors holding the JAX package's uint32 bits; the
 kernels read them as uint32.
@@ -63,9 +69,14 @@ _REF_CELLS = 1 << 25  # (query, row, word) cells per Hamming plain-version step
 # (csrc/tc_scan_topk.cuh)
 MMA_ROWS, _MMA_BK, _MMA_STAGES, _SCAN_QCAP = 128, 64, 3, 16
 SIGN_SLICE_WORDS = 2  # sign words per ring slice: one K byte per bit
+BLOCKMAX_QB = 128  # queries per block-max CTA (csrc/blockmax2.cu QB)
+# Widths whose int32 accumulation is exact: |score| <= 128^2 * D < 2^31 for
+# D < 2^17 (and the Hamming raw score |32 W| far inside it for W < 2^12)
+MAX_D, MAX_W = (1 << 17) - 1, (1 << 12) - 1
+_EXACT_F32_D = 1024  # widest D whose dots an fp32 matmul sums exactly
 _P = ctypes.c_void_p
 _LAYOUT_MISMATCH = -1  # a scan entry's return when its shared-memory layout disagrees
-launches_by_shape: Dict[Tuple[str, int, int], int] = {}
+launches_by_shape: Dict[Tuple[str, int, int, int], int] = {}
 
 
 def _keys(scores: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -88,9 +99,16 @@ def _decode(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
             torch.where(empty, -1, row).to(torch.int32))
 
 
+def _dot_operand(codes: torch.Tensor) -> torch.Tensor:
+    """Transposed codes in the float type whose matmul sums their dots
+    exactly: fp32 up to D = 1024, float64 above (see module doc)."""
+    exact = torch.float32 if codes.shape[-1] <= _EXACT_F32_D else torch.float64
+    return codes.to(exact).T
+
+
 def _dots(codes_t: torch.Tensor, qi: torch.Tensor) -> torch.Tensor:
-    """Exact integer dots against fp32 transposed codes (see module doc)."""
-    return qi.to(torch.float32) @ codes_t
+    """Exact integer dots against `_dot_operand(codes)`."""
+    return qi.to(codes_t.dtype) @ codes_t
 
 
 def _popcount64(x: torch.Tensor) -> torch.Tensor:
@@ -139,7 +157,7 @@ def int8_scan_topk_reference(codes: torch.Tensor, qi: torch.Tensor,
                              mask: Optional[torch.Tensor], k: int
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of `int8_scan_topk`."""
-    codes_t = codes.to(torch.float32).T
+    codes_t = _dot_operand(codes)
     blocks = (_dots(codes_t, qi[q0:q0 + _REF_QUERY_CHUNK])
               for q0 in range(0, max(qi.shape[0], 1), _REF_QUERY_CHUNK))
     return _topk_rows(blocks, mask, codes.shape[0], k)
@@ -147,7 +165,7 @@ def int8_scan_topk_reference(codes: torch.Tensor, qi: torch.Tensor,
 
 def int8_scores_reference(codes: torch.Tensor, qi: torch.Tensor) -> torch.Tensor:
     """Plain version of `int8_scores`: (B, N) int32 raw dot products."""
-    return _dots(codes.to(torch.float32).T, qi).to(torch.int32)
+    return _dots(_dot_operand(codes), qi).to(torch.int32)
 
 
 def hamming_scores_reference(codes: torch.Tensor, qcodes: torch.Tensor) -> torch.Tensor:
@@ -193,7 +211,7 @@ def blockmax2_reference(codes: torch.Tensor, qi: torch.Tensor,
     m = torch.nn.functional.pad(m, (0, pad), value=False)
     local = torch.arange(BLOCKMAX_TILE, device=codes.device, dtype=torch.int64)
     base = torch.arange(nt, device=codes.device, dtype=torch.int64)[:, None] * BLOCKMAX_TILE
-    codes_t = codes.to(torch.float32).T
+    codes_t = _dot_operand(codes)
     outs_s, outs_r = [], []
     for q0 in range(0, max(qi.shape[0], 1), _REF_QUERY_CHUNK):
         sc = torch.nn.functional.pad(_dots(codes_t, qi[q0:q0 + _REF_QUERY_CHUNK]), (0, pad))
@@ -236,8 +254,8 @@ def _check_mask(mask: Optional[torch.Tensor], n: int, device: torch.device):
 def _check(codes: torch.Tensor, qi: torch.Tensor, mask: Optional[torch.Tensor]):
     """int8 (N, D) codes and (B, D) queries; returns the mask as uint8."""
     d = codes.shape[-1]
-    _check_pair(codes, qi, torch.int8, codes.shape[0], d, 0 < d <= 1024 and d % 16 == 0,
-                "0 < D <= 1024 with D % 16 == 0")
+    _check_pair(codes, qi, torch.int8, codes.shape[0], d, 0 < d <= MAX_D,
+                f"0 < D <= {MAX_D} (exact int32 accumulation)")
     return _check_mask(mask, codes.shape[0], codes.device)
 
 
@@ -246,17 +264,37 @@ def _check_words(codes: torch.Tensor, q: torch.Tensor, mask: Optional[torch.Tens
     """int32 sign words, (N, W) or transposed (W, N), and (B, W) queries;
     returns the mask as uint8."""
     w, n = (codes.shape[0], codes.shape[-1]) if transposed else (codes.shape[-1], codes.shape[0])
-    _check_pair(codes, q, torch.int32, n, w, 0 < w <= 32, "0 < W <= 32 words")
+    _check_pair(codes, q, torch.int32, n, w, 0 < w <= MAX_W, f"0 < W <= {MAX_W} words")
     return _check_mask(mask, n, codes.device)
 
 
+def padded_width(d: int) -> int:
+    """D as the tile reads it: rows are copied in 16-byte chunks."""
+    return -(-d // 16) * 16
+
+
+def _pad16(codes: torch.Tensor, qi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Codes and queries zero-padded to `padded_width(D)` columns where D %
+    16 != 0 (a zero column adds 0 to every dot), else as they are. The copy
+    moves N x D16 bytes at most: ~0.2 ms at 1M x 304 on an H100 (3.35
+    TB/s), against ~8 ms for a scan of the same rows."""
+    pad = padded_width(codes.shape[1]) - codes.shape[1]
+    if not pad:
+        return codes, qi
+    return (torch.nn.functional.pad(codes, (0, pad)), torch.nn.functional.pad(qi, (0, pad)))
+
+
+def mma_ring_bytes(qb: int) -> int:
+    """Shared memory of the tensor-core tile's ring at `qb` queries: 3 stages
+    of qb + 128 rows x 64 bytes, and 128 mask bytes each."""
+    return _MMA_STAGES * ((qb + MMA_ROWS) * _MMA_BK + MMA_ROWS)
+
+
 def int8_scan_smem_bytes(qb: int, k: int) -> int:
-    """Shared memory of one int8 scan CTA of `qb` queries: the ring (3 stages
-    of qb + 128 rows x 64 bytes, and 128 mask bytes each), the k-th score,
-    k-th row and queue count per query, the 16-entry queues and the lists
-    (qb x k), (score, row) int32 pairs each."""
-    ring = _MMA_STAGES * ((qb + MMA_ROWS) * _MMA_BK + MMA_ROWS)
-    return ring + qb * 4 * 3 + qb * _SCAN_QCAP * 8 + qb * k * 8
+    """Shared memory of one int8 scan CTA of `qb` queries: the ring, the k-th
+    score, k-th row and queue count per query, the 16-entry queues and the
+    lists (qb x k), (score, row) int32 pairs each."""
+    return mma_ring_bytes(qb) + qb * 4 * 3 + qb * _SCAN_QCAP * 8 + qb * k * 8
 
 
 def int8_scan_qb(k: int) -> int:
@@ -267,9 +305,17 @@ def int8_scan_qb(k: int) -> int:
 
 class ScanPlan(NamedTuple):
     qb: int              # queries per CTA
-    smem: int            # shared memory per partial CTA
+    smem: int            # shared memory per CTA
     splits: int          # corpus splits (grid y)
-    rows_per_split: int  # a multiple of MMA_ROWS
+    rows_per_split: int  # a multiple of the kernel's row unit
+
+
+def _one_wave(units: int, slots: int) -> Tuple[int, int]:
+    """(splits, units per split): at most `slots` splits (at least 1), each
+    a whole number of units, none of them empty."""
+    splits = max(1, min(slots, units))
+    per_split = max(1, -(-units // splits))
+    return max(1, -(-units // per_split)), per_split
 
 
 def int8_scan_plan(n: int, b: int, k: int, num_sms: int, ctas_per_sm: int) -> ScanPlan:
@@ -278,12 +324,20 @@ def int8_scan_plan(n: int, b: int, k: int, num_sms: int, ctas_per_sm: int) -> Sc
     without starting a second (at least 1), no more splits than 128-row
     tiles, none of them empty, and splits x k within the merge's sort."""
     qb = int8_scan_qb(k)
-    qblocks = -(-b // qb)
-    tiles = -(-n // MMA_ROWS)
-    splits = max(1, min(num_sms * max(ctas_per_sm, 1) // qblocks, tiles, _MERGE_MAX // k))
-    per_split = max(1, -(-tiles // splits))
-    splits = max(1, -(-tiles // per_split))  # no split left without rows
+    qblocks = max(1, -(-b // qb))
+    slots = min(num_sms * max(ctas_per_sm, 1) // qblocks, _MERGE_MAX // k)
+    splits, per_split = _one_wave(-(-n // MMA_ROWS), slots)
     return ScanPlan(qb, int8_scan_smem_bytes(qb, k), splits, per_split * MMA_ROWS)
+
+
+def blockmax2_plan(n: int, b: int, num_sms: int, ctas_per_sm: int) -> ScanPlan:
+    """Launch plan of `blockmax2`: (query blocks of 128) x splits filling
+    one wave of `num_sms` x `ctas_per_sm` CTAs (at least 1 split), each
+    split a whole number of 512-row tiles (a tile's top-2 never spans two
+    CTAs), none empty. No grid dimension grows with N."""
+    qblocks = max(1, -(-b // BLOCKMAX_QB))
+    splits, per_split = _one_wave(-(-n // BLOCKMAX_TILE), num_sms * max(ctas_per_sm, 1) // qblocks)
+    return ScanPlan(BLOCKMAX_QB, mma_ring_bytes(BLOCKMAX_QB), splits, per_split * BLOCKMAX_TILE)
 
 
 def _check_k(k: int, smem: int, what: str) -> None:
@@ -328,19 +382,35 @@ _SCAN_ENTRY = {"int8_scan_topk": "rr_int8_scan_topk", "hamming": "rr_hamming_sca
 _ctas_per_sm: Dict[Tuple[str, int, int], int] = {}
 
 
-def int8_scan_ctas_per_sm(stem: str, k: int, dev: torch.device) -> int:
-    """Partial CTAs one SM of `dev` holds at list length k for the scan of
-    csrc/<stem>.cu (`int8_scan_topk` or `hamming`), from the occupancy API
-    over the built kernel (its registers and shared memory)."""
-    key = (stem, dev.index if dev.index is not None else torch.cuda.current_device(), k)
+def _occupancy(key: Tuple[str, int, int], stem: str, entry: str, dev: torch.device,
+               *args) -> int:
+    """CTAs one SM of `dev` holds of a kernel of csrc/<stem>.cu, from the
+    occupancy API over the built kernel (its registers and shared memory),
+    cached under `key`."""
     if key not in _ctas_per_sm:
-        entry = f"{_SCAN_ENTRY[stem]}_ctas_per_sm"
-        fn = _lib(stem, entry, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+        fn = _lib(stem, entry, [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)])
         out = ctypes.c_int(0)
         with torch.cuda.device(dev):
-            _raise_on(fn(k, ctypes.byref(out)), entry)
+            _raise_on(fn(*args, ctypes.byref(out)), entry)
         _ctas_per_sm[key] = out.value
     return _ctas_per_sm[key]
+
+
+def _dev_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def int8_scan_ctas_per_sm(stem: str, k: int, dev: torch.device) -> int:
+    """Partial CTAs one SM of `dev` holds at list length k for the scan of
+    csrc/<stem>.cu (`int8_scan_topk` or `hamming`)."""
+    return _occupancy((stem, _dev_index(dev), k), stem, f"{_SCAN_ENTRY[stem]}_ctas_per_sm", dev,
+                      k)
+
+
+def blockmax2_ctas_per_sm(dev: torch.device) -> int:
+    """Block-max CTAs one SM of `dev` holds."""
+    return _occupancy(("blockmax2", _dev_index(dev), 0), "blockmax2", "rr_blockmax2_ctas_per_sm",
+                      dev)
 
 
 def _scan_plan(stem: str, n: int, b: int, k: int, dev: torch.device) -> ScanPlan:
@@ -353,10 +423,11 @@ def _aligned_mask(m8: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return m8.clone() if m8 is not None and m8.data_ptr() % 16 else m8
 
 
-def _count(fn, width: int, k: int = 0) -> None:
-    """One launch of `fn`'s kernel at width D or W and depth k."""
+def _count(fn, width: int, k: int, b: int) -> None:
+    """One launch of `fn`'s kernel at width D or W, depth k (0 for a kernel
+    that selects none) and b queries."""
     fn.launches += 1
-    key = (fn.__name__, width, k)
+    key = (fn.__name__, width, k, b)
     launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
 
 
@@ -415,11 +486,12 @@ def int8_scan_topk(codes: torch.Tensor, qi: torch.Tensor,
     m8 = _check(codes, qi, mask)
     n, d = codes.shape
     _check_k(k, int8_scan_smem_bytes(int8_scan_qb(k), k), f"D={d}")
+    codes, qi = _pad16(codes, qi)
     _check_aligned(codes, qi)
     plan = _scan_plan("int8_scan_topk", n, qi.shape[0], k, codes.device)
-    out = _scan_topk("int8_scan_topk", codes, qi, _aligned_mask(m8), n, d,
+    out = _scan_topk("int8_scan_topk", codes, qi, _aligned_mask(m8), n, codes.shape[1],
                      k, plan)
-    _count(int8_scan_topk, d, k)
+    _count(int8_scan_topk, d, k, qi.shape[0])
     return out
 
 
@@ -439,19 +511,24 @@ def blockmax2(codes: torch.Tensor, qi: torch.Tensor, mask: Optional[torch.Tensor
     n, d = codes.shape
     b = qi.shape[0]
     nt = -(-n // BLOCKMAX_TILE)
-    if nt > 65535:
-        raise ValueError(f"{n} rows exceed the block-max grid ({65535} tiles)")
     out_s = torch.empty((b, 2 * nt), dtype=torch.float32, device=codes.device)
     out_r = torch.empty((b, 2 * nt), dtype=torch.int32, device=codes.device)
     if b == 0 or nt == 0:
         return out_s, out_r
+    codes, qi = _pad16(codes, qi)
+    _check_aligned(codes, qi)
+    dev = codes.device
+    plan = blockmax2_plan(n, b, torch.cuda.get_device_properties(dev).multi_processor_count,
+                          blockmax2_ctas_per_sm(dev))
     fn = _lib("blockmax2", "rr_blockmax2",
-              [_P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P, _P, _P])
-    with torch.cuda.device(codes.device):
-        err = fn(codes.data_ptr(), qi.data_ptr(), _ptr(m8), n, d, b,
-                 out_s.data_ptr(), out_r.data_ptr(), _stream(codes.device))
+              [_P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_int64, ctypes.c_int64, _P, _P, _P])
+    with torch.cuda.device(dev):
+        err = fn(codes.data_ptr(), qi.data_ptr(), _ptr(_aligned_mask(m8)), n, codes.shape[1], b,
+                 plan.splits, plan.rows_per_split, plan.smem, out_s.data_ptr(), out_r.data_ptr(),
+                 _stream(dev))
     _raise_on(err, "blockmax2")
-    _count(blockmax2, d)
+    _count(blockmax2, d, 0, b)
     return out_s, out_r
 
 
@@ -464,10 +541,11 @@ def int8_scores(codes: torch.Tensor, qi: torch.Tensor) -> torch.Tensor:
     if codes.device.type == "cpu":
         return int8_scores_reference(codes, qi)
     _check(codes, qi, None)
-    _check_aligned(codes, qi)
     n, d = codes.shape
-    out = _scores("int8_scores", "rr_int8_scores", codes, qi, n, d)
-    _count(int8_scores, d)
+    codes, qi = _pad16(codes, qi)
+    _check_aligned(codes, qi)
+    out = _scores("int8_scores", "rr_int8_scores", codes, qi, n, codes.shape[1])
+    _count(int8_scores, d, 0, qi.shape[0])
     return out
 
 
@@ -482,7 +560,7 @@ def hamming_scores(codes: torch.Tensor, qcodes: torch.Tensor) -> torch.Tensor:
     _check_words(codes, qcodes)
     n, w = codes.shape
     out = _scores("hamming", "rr_hamming_scores", codes, qcodes, n, w)
-    _count(hamming_scores, w)
+    _count(hamming_scores, w, 0, qcodes.shape[0])
     return out
 
 
@@ -496,7 +574,7 @@ def hamming_scores_t(codes_t: torch.Tensor, qcodes: torch.Tensor) -> torch.Tenso
     _check_words(codes_t, qcodes, transposed=True)
     w, n = codes_t.shape
     out = _scores("hamming", "rr_hamming_scores_t", codes_t, qcodes, n, w)
-    _count(hamming_scores_t, w)
+    _count(hamming_scores_t, w, 0, qcodes.shape[0])
     return out
 
 
@@ -518,7 +596,7 @@ def hamming_scan_topk(codes: torch.Tensor, qcodes: torch.Tensor,
     plan = _scan_plan("hamming", n, qcodes.shape[0], k, codes.device)
     out = _scan_topk("hamming", codes, qcodes, _aligned_mask(m8), n, w,
                      k, plan)
-    _count(hamming_scan_topk, w, k)
+    _count(hamming_scan_topk, w, k, qcodes.shape[0])
     return out
 
 

@@ -24,6 +24,16 @@ takes `select` and ignores it, as the JAX package's chunked Hamming scan
 does ("blockmax" has no binary counterpart there either); it selects
 exactly, lowest row first among ties.
 
+Stage-1 depth. The fused scans keep per-query lists in shared memory, up to
+k = `cuda_kernels.INT8_SCAN_TOPK_MAX_K`. Deeper selections (the
+quality-optimized preset's kc = 960) take the exact-product route
+(`stage1_route`): the (b, N) int32 product from the score kernel
+(`cuda_kernels.int8_scores` or `hamming_scores`), a block of queries at a
+time sized to the card's free memory (`product_query_block` of
+`route_budget`), then an exact top-k over (score, row) keys -- the JAX
+"f32" policy itself. The route is chosen by k before any launch; nothing
+falls back.
+
 Every top-k here breaks ties by the lowest index, as `lax.top_k` does
 (`topk_first`); `torch.topk` promises no order among equal values.
 """
@@ -41,6 +51,12 @@ SELECT_NEG = -3e38  # masked slot of the bf16 selection (blockmax small-N fallba
 FUSED_SELECTS = ("", "f32", "bf16", "bf16_chunked")
 _BIG_ROW = 2**30
 INV_127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
+# Peak transient bytes per (query, row) cell of a (B, N) score path: an f32
+# or int32 score matrix, its masked copy and the int64 order keys of the
+# top-k. The engine's gate and the exact-product route budget by it.
+SCORE_BYTES_PER_CELL = 24
+ROUTE_SLACK_BYTES = 2 << 30  # free card memory the exact-product route leaves
+CPU_ROUTE_BYTES = 16 << 30  # its budget off the card (test-size runs)
 
 
 def _f32_order(x: torch.Tensor) -> torch.Tensor:
@@ -142,6 +158,59 @@ def blockmax_select(codes: torch.Tensor, qi: torch.Tensor,
     return top_s, top_i
 
 
+def stage1_route(k: int) -> str:
+    """How a fused stage 1 selects k candidates: "scan" (the scan -> top-k
+    kernel, whose lists hold k <= INT8_SCAN_TOPK_MAX_K) or "product" (the
+    exact (B, N) product a block of queries at a time, then the top-k)."""
+    return "scan" if k <= ck.INT8_SCAN_TOPK_MAX_K else "product"
+
+
+def product_query_block(n: int, b: int, budget: int) -> int:
+    """Queries per step of the exact-product route over n rows: as many of
+    the b as fit `budget` bytes at SCORE_BYTES_PER_CELL per (query, row)
+    cell, at least 1."""
+    return max(1, min(b, budget // max(1, n * SCORE_BYTES_PER_CELL)))
+
+
+def route_budget(device: torch.device) -> int:
+    """Bytes the exact-product route may hold on `device`, measured when the
+    route runs: on a card, its free memory plus what PyTorch's allocator
+    holds unused, less ROUTE_SLACK_BYTES for fragmentation and the outputs;
+    elsewhere (test-size runs on the CPU) CPU_ROUTE_BYTES."""
+    if device.type != "cuda":
+        return CPU_ROUTE_BYTES
+    free, _total = torch.cuda.mem_get_info(device)
+    unused = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return max(0, free + unused - ROUTE_SLACK_BYTES)
+
+
+def _product_topk(scores, q: torch.Tensor, mask: Optional[torch.Tensor], n: int, k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact-product route: `scores(q block)` -> (b, N) exact int32
+    scores, a block of queries at a time within `route_budget`, then the
+    top-k over unique int64 keys (score in the high 32 bits, the row
+    reversed in the low: score descending, row ascending). Masked rows and
+    slots past N are empty: (-3e38, -1), as the scan kernel returns them."""
+    step = product_query_block(n, q.shape[0], route_budget(q.device))
+    low = (1 << 32) - 1 - torch.arange(n, device=q.device, dtype=torch.int64)
+    dead = None if mask is None else ~mask.bool()[None, :]
+    kk = min(k, n)
+    outs_s, outs_r = [], []
+    for q0 in range(0, max(q.shape[0], 1), step):
+        keys = torch.add(low, scores(q[q0:q0 + step]), alpha=1 << 32)  # one int64 pass
+        if dead is not None:
+            keys.masked_fill_(dead, torch.iinfo(torch.int64).min)
+        top = torch.topk(keys, kk, dim=1).values
+        empty = top == torch.iinfo(torch.int64).min
+        outs_s.append(torch.where(empty, ck.NEG, (top >> 32).to(torch.float32)))
+        outs_r.append(torch.where(empty, -1, (1 << 32) - 1 - (top & 0xFFFFFFFF)).to(torch.int32))
+    top_s, top_i = torch.cat(outs_s), torch.cat(outs_r)
+    if kk < k:
+        top_s = torch.nn.functional.pad(top_s, (0, k - kk), value=ck.NEG)
+        top_i = torch.nn.functional.pad(top_i, (0, k - kk), value=-1)
+    return top_s, top_i
+
+
 def scan_select(codes: torch.Tensor, qi: torch.Tensor, mask: Optional[torch.Tensor],
                 k: int, select: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stage-1 candidate selection over int8 codes under `select`; returns
@@ -150,7 +219,9 @@ def scan_select(codes: torch.Tensor, qi: torch.Tensor, mask: Optional[torch.Tens
         return blockmax_select(codes, qi, mask, k)
     if select not in FUSED_SELECTS:
         raise ValueError(f"unknown stage-1 select policy: {select!r}")
-    return ck.int8_scan_topk(codes, qi, mask, k)
+    if stage1_route(k) == "scan":
+        return ck.int8_scan_topk(codes, qi, mask, k)
+    return _product_topk(lambda qb: ck.int8_scores(codes, qb), qi, mask, codes.shape[0], k)
 
 
 def hamming_scan_topk(codes: torch.Tensor, qcodes: torch.Tensor,
@@ -160,8 +231,13 @@ def hamming_scan_topk(codes: torch.Tensor, qcodes: torch.Tensor,
     (D - 2 * hamming) / D with D = 32 W, the cosine of the sign vectors, so
     stage-1 scores share the rescore's scale. Empty slots NEG_INF, -1.
     `select` is accepted and ignored (see module doc)."""
-    inv_dim = float(torch.tensor(1.0 / (codes.shape[1] * 32), dtype=torch.float32))
-    raw_s, top_i = ck.hamming_scan_topk(codes, qcodes, mask, k)
+    top = codes.shape[1] * 32
+    inv_dim = float(torch.tensor(1.0 / top, dtype=torch.float32))
+    if stage1_route(k) == "scan":
+        raw_s, top_i = ck.hamming_scan_topk(codes, qcodes, mask, k)
+    else:  # raw = 32 W - 2 * hamming, in place on the distances
+        raw_s, top_i = _product_topk(lambda qb: ck.hamming_scores(codes, qb).mul_(-2).add_(top),
+                                     qcodes, mask, codes.shape[0], k)
     valid = raw_s > NEG_INF / 2
     top_s = torch.where(valid, raw_s * inv_dim, NEG_INF)  # XLA's reciprocal rewrite of / D
     return top_s, top_i

@@ -118,7 +118,7 @@ def _words(seed, n, w, b, card, ties=True):
 def test_hamming_scan_topk_equals_plain_version(card, n, w, b, k, ties):
     codes, q, mask = _words(n + k, n, w, b, card, ties)
     before = ck.hamming_scan_topk.launches
-    key = ("hamming_scan_topk", w, k)
+    key = ("hamming_scan_topk", w, k, b)
     before_shape = ck.launches_by_shape.get(key, 0)
     s, r = ck.hamming_scan_topk(codes, q, mask, k)
     torch.cuda.synchronize()
@@ -147,8 +147,9 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(card):
     codes, qi, mask = _inputs(1, 2048, 64, 4, -3, 4, card)
     with pytest.raises(ValueError):
         ck.int8_scan_topk(codes, qi, mask, ck.INT8_SCAN_TOPK_MAX_K + 1)
-    with pytest.raises(ValueError):
-        ck.int8_scan_topk(codes[:, :40].contiguous(), qi[:, :40].contiguous(), mask, 10)
+    wide = torch.zeros((4, ck.MAX_D + 1), dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="exact int32"):
+        ck.int8_scan_topk(wide, wide[:1].clone(), None, 10)
     with pytest.raises(TypeError):
         ck.blockmax2(codes.float(), qi, mask)
     unaligned = torch.empty(2048 * 64 + 1, dtype=torch.int8, device=card)[1:].view(2048, 64)
@@ -159,6 +160,95 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(card):
         ck.hamming_scan_topk(words.to(torch.int64), q, None, 10)
     with pytest.raises(ValueError):
         ck.hamming_scores(words, q[:, :8].contiguous())
+
+
+# D off the 16-byte chunk (zero-padded by the wrapper) and wider than 1024
+# (the plain versions sum in float64), for all three int8 kernels.
+@pytest.mark.parametrize("n,d,b,k,lo,hi", [(5000, 1536, 33, 40, -127, 128),
+                                           (3000, 1536, 3, 360, -2, 3),
+                                           (5000, 100, 33, 40, -127, 128),
+                                           (2177, 100, 130, 240, -2, 3)])
+def test_int8_kernels_at_wide_and_odd_d(card, n, d, b, k, lo, hi):
+    codes, qi, mask = _inputs(n + d, n, d, b, lo, hi, card)
+    before = ck.launches_by_shape.get(("int8_scores", d, 0, b), 0)
+    for kern, plain, args in ((ck.int8_scan_topk, ck.int8_scan_topk_reference,
+                               (codes, qi, mask, k)),
+                              (ck.blockmax2, ck.blockmax2_reference, (codes, qi, mask)),
+                              (ck.int8_scores, ck.int8_scores_reference, (codes, qi))):
+        out = kern(*args)
+        torch.cuda.synchronize()
+        ref = plain(*args)
+        for a, c in zip(out if isinstance(out, tuple) else (out,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            assert torch.equal(a, c), kern.__name__
+    assert ck.launches_by_shape[("int8_scores", d, 0, b)] == before + 1  # at the caller's D
+
+
+# The block-max kernel off its 128-query block (B = 129, 255) with a dead
+# 512-row tile, duplicate rows and a ragged last tile.
+@pytest.mark.parametrize("n,d,b,lo,hi", [(70_000, 384, 129, -1, 2), (9000, 64, 255, -2, 3),
+                                         (4095, 16, 129, -127, 128), (700, 48, 1, -1, 2)])
+def test_blockmax2_edges(card, n, d, b, lo, hi):
+    codes, qi, mask = _inputs(n + b, n, d, b, lo, hi, card)
+    s, r = ck.blockmax2(codes, qi, mask)
+    torch.cuda.synchronize()
+    ps, pr = ck.blockmax2_reference(codes, qi, mask)
+    assert torch.equal(r, pr) and torch.equal(s, ps)
+
+
+def test_blockmax2_past_the_old_tile_cap(card):
+    """65,536 x 512 + 700 rows (537 MB of D = 16 codes): more 512-row tiles
+    than a grid dimension of 65535 held."""
+    n, d, b = 65_536 * 512 + 700, 16, 3
+    g = torch.Generator(device=card).manual_seed(7)
+    codes = torch.randint(-2, 3, (n, d), dtype=torch.int8, device=card, generator=g)
+    qi = torch.randint(-2, 3, (b, d), dtype=torch.int8, device=card, generator=g)
+    mask = torch.ones(n, dtype=torch.bool, device=card)
+    mask[-1200:-900] = False
+    s, r = ck.blockmax2(codes, qi, mask)
+    torch.cuda.synchronize()
+    ps, pr = ck.blockmax2_reference(codes, qi, mask)
+    assert s.shape == (b, 2 * 65_538)
+    assert torch.equal(r, pr) and torch.equal(s, ps)
+
+
+@pytest.mark.parametrize("k", [513, 960])
+def test_stage1_product_route_on_card(card, monkeypatch, k):
+    """k > 512: the exact-product route through int8_scores / hamming_scores
+    equals the scans' plain versions; the scans are not launched. The int8
+    route runs under a budget of 16 queries per step, the Hamming one under
+    the card's measured free memory (one step)."""
+    from radiant_rag_tpu_torch.ops import similarity as sim
+
+    codes, qi, mask = _inputs(k, 20_000, 384, 40, -2, 3, card)
+    words, q, wmask = _words(k, 20_000, 12, 40, card)
+    before = (ck.int8_scan_topk.launches, ck.hamming_scan_topk.launches,
+              ck.int8_scores.launches, ck.hamming_scores.launches)
+    measured = sim.route_budget(codes.device)
+    assert sim.product_query_block(20_000, 40, measured) == 40
+    with monkeypatch.context() as m:
+        m.setattr(sim, "route_budget", lambda device: 16 * 20_000 * 24)
+        s, r = sim.scan_select(codes, qi, mask, k, "f32")
+    hs, hr = sim.hamming_scan_topk(words, q, wmask, k)
+    torch.cuda.synchronize()
+    ps, pr = ck.int8_scan_topk_reference(codes, qi, mask, k)
+    assert torch.equal(r, pr) and torch.equal(s, ps)
+    _, phr = ck.hamming_scan_topk_reference(words, q, wmask, k)
+    assert torch.equal(hr, phr)
+    assert (ck.int8_scan_topk.launches, ck.hamming_scan_topk.launches,
+            ck.int8_scores.launches, ck.hamming_scores.launches) == \
+        (before[0], before[1], before[2] + 3, before[3] + 1)  # 40 queries in steps of 16
+
+
+def test_hamming_kernels_past_32_words(card):
+    """W = 48 (a 1536-d embedding's sign words)."""
+    words, q, mask = _words(48, 6001, 48, 65, card, ties=False)
+    s, r = ck.hamming_scan_topk(words, q, mask, 100)
+    h = ck.hamming_scores(words, q)
+    torch.cuda.synchronize()
+    ps, pr = ck.hamming_scan_topk_reference(words, q, mask, 100)
+    assert torch.equal(r, pr) and torch.equal(s, ps)
+    assert torch.equal(h, ck.hamming_scores_reference(words, q))
 
 
 @pytest.mark.parametrize("route,select", [("sketch", ""), ("pages", ""),

@@ -94,3 +94,45 @@ def test_smem_does_not_depend_on_d_and_grows_with_k():
     sizes = [ck.int8_scan_smem_bytes(64, k) for k in (40, 160, 240, 360)]
     assert sizes == sorted(sizes)
     assert sizes[1] - sizes[0] == 64 * 120 * 8  # the lists: 64 queries x k x 8 bytes
+
+
+# -- blockmax2: (query blocks of 128) x splits of whole 512-row tiles ----------
+
+def test_blockmax2_constants_match_the_cuda_source():
+    src = CSRC / "blockmax2.cu"
+    assert _constant(src, "QB") == ck.BLOCKMAX_QB == 128
+    assert _constant(src, "BLOCKMAX_TILE") == ck.BLOCKMAX_TILE == 512
+    assert "int8_mma_tile.cuh" in src.read_text() and "scan_tiles<QB>" in src.read_text()
+    assert not (CSRC / "int8_tile.cuh").exists()  # the __dp4a tile is retired
+    # the ring of the 128-query tile and nothing else (csrc: Tile<QB>::RING_BYTES)
+    assert ck.mma_ring_bytes(128) == 3 * (256 * 64 + 128) == 49_536
+
+
+@pytest.mark.parametrize("n,b", [(N, 2048), (N, 1024), (N, 3), (N, 129), (N, 255),
+                                 (65_536 * 512 + 700, 3), (65_536 * 512 + 700, 2048),
+                                 (1300, 5), (512, 1), (1, 1), (70_000, 33), (N + 1, 4096)])
+@pytest.mark.parametrize("ctas", [1, 2])
+def test_blockmax2_plan_covers_every_tile_once_in_one_wave(n, b, ctas):
+    plan = ck.blockmax2_plan(n, b, SMS, ctas)
+    tiles = -(-n // ck.BLOCKMAX_TILE)
+    assert plan.qb == 128 and plan.smem == ck.mma_ring_bytes(128) <= ck.SMEM_MAX
+    assert plan.rows_per_split % ck.BLOCKMAX_TILE == 0 and plan.rows_per_split > 0
+    # every 512-row tile in exactly one split, and no split empty
+    per = plan.rows_per_split // ck.BLOCKMAX_TILE
+    owners = [t // per for t in range(tiles)]
+    assert owners == sorted(owners) and set(owners) == set(range(plan.splits))
+    assert plan.splits * plan.rows_per_split >= n > (plan.splits - 1) * plan.rows_per_split
+    # at most one wave, with the smallest whole-tile splits that fit in it
+    qblocks = -(-b // 128)
+    slots = max(1, SMS * ctas // qblocks)
+    assert plan.splits <= slots and (per == 1 or -(-tiles // (per - 1)) > slots)
+    assert plan.splits <= 65_535  # grid y, whatever N
+
+
+def test_blockmax2_plan_lifts_the_tile_count_cap():
+    """Past 65535 tiles of 512 rows the old grid (y = tiles) could not launch;
+    the plan's grid y is the split count."""
+    n = 65_536 * 512 + 700
+    assert -(-n // ck.BLOCKMAX_TILE) > 65_535
+    plan = ck.blockmax2_plan(n, 3, SMS, 2)
+    assert plan.splits == SMS * 2 and plan.splits * plan.rows_per_split >= n

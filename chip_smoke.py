@@ -26,7 +26,19 @@ seed: 1M docs of clustered 384-d vectors and zipfian 48-token texts):
            `search_rows` at the auto fused depth (60), sequential and
            pipelined, one batch of queries nearer their documents, and
            `retrieve_by_embedding_batch`; the stored sign words are held
-           against numpy's packing of the corpus vectors.
+           against numpy's packing of the corpus vectors;
+  phase 6  hybrid + rerank over phase 4's engine, BM25 index and corpus
+           texts with MiniLM-L12-width models (hidden 384, 12 layers, 12
+           heads, FFN 1536, vocab 30522; bf16, random weights from seeded
+           generators, hash tokenizer): `LocalNLPModels.embed_device` via
+           `embed_queries_device` -> `search_rows(_qdev=...)` at k = 40 ->
+           `DeviceReranker.rerank_rows` of the fused top-40 to 10 over a
+           token table of the 1M texts (q_len 31, d_len 93, L = 127, 4096
+           pairs a chunk), with its stage times, the cross-encoder's rate,
+           a profile and the checks of the models against host packing, the
+           host embed path and a CPU float32 forward; then the shipped
+           128 x 6 artifacts on the card against the CPU, and one batch at
+           bench.py's cross-encoder shape.
 
 Prints the card's name and power limit, the phases' numbers, one
 {"kernels": [...]} JSON line, and as its last line
@@ -48,6 +60,7 @@ from pathlib import Path
 
 import numpy as np
 
+CLS_ID, SEP_ID = 101, 102  # the tokenizers' special ids (models/tokenizer.py)
 N_DOCS = 1_000_000  # the bench's corpus; the engine rounds it to 2^20 rows
 DIM = 384
 BATCH = 2048
@@ -83,6 +96,24 @@ QUALITY_OPTIMIZED_PRESET = {
     "pipeline": {"use_expansion": True, "use_multihop": True},
 }
 QUALITY_BATCHES = 2
+# phase 6: the embedding section at "preset: none" keeps MiniLM-L12's widths
+# for both models (config.py's EmbeddingConfig / CrossEncoderConfig defaults)
+MINILM_PRESET = {"embedding": {"preset": "none"}}
+RERANK_K = 4 * TOP_K  # the hybrid top-40 (bench.py's k_cand)
+Q_LEN, D_LEN, PAIR_CHUNK = 31, 93, 4096
+BF16_FLOPS_PER_S = 989e12  # H100 SXM: dense bf16 tensor-core peak
+# bf16 on the card against a float32 forward of the same weights on the CPU
+# (and against another batch composition on the card): L2-normalized
+# embeddings within 3e-2 per coordinate and cosine >= 0.998, logits within
+# 5% of the batch's largest |logit| (at least 0.05). That is ~3x what bf16
+# measured against float32 on the CPU: MiniLM-L12 at random init 1.7e-3 /
+# cosine 0.99995 / 1.7e-2 at |logit| <= 0.45; the shipped 128 x 6 models
+# 8.6e-3 / 0.99958 / 0.21 at |logit| <= 12.1.
+BF16_EMB_ATOL, BF16_MIN_COS, BF16_LOGIT_RTOL = 3e-2, 0.998, 5e-2
+
+
+def logit_tol(ref) -> float:
+    return BF16_LOGIT_RTOL * max(1.0, float(np.abs(ref).max()))
 
 KERNEL_STEMS = ("blockmax2", "hamming", "int8_scan_topk", "int8_scores")  # csrc/<stem>.cu
 PALLAS = "radiant_rag_tpu/ops/pallas_kernels.py"
@@ -803,6 +834,7 @@ def main() -> int:
             if r >= 0:
                 check(words & set(texts[r].split()), (i, r))
     phase_quality(ck, run, searcher, queries, qtexts, exact0)
+    phase_models(run, searcher, vecs, texts, queries, qtexts, smi)
     del searcher, eng, bm, res0, res40, resbm, resp, respipe
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -898,6 +930,264 @@ def phase_quality(ck, run, searcher, queries, qtexts, exact0):
         ms = cuda_ms(lambda: sim.scan_select(codes, q, eng.valid, kc, "f32"), reps=2)
         log(f"quality preset stage 1 {label} B={BATCH} k={kc} (int8_scores + top-k): "
             f"{ms:.3f} ms")
+
+
+def ce_flops(cfg, pairs: int, seq: int) -> float:
+    """Operations of one cross-encoder forward over `pairs` packed pairs of
+    `seq` tokens (padded pairs count as work done): 2 x the Dense weights
+    per token and layer, 4 x seq x hidden per token and layer for the
+    attention's two products, and the pooler and classifier on [CLS]."""
+    h, ff = cfg.hidden_size, cfg.intermediate_size
+    per_token_layer = 2 * (4 * h * h + 2 * h * ff) + 4 * seq * h
+    return cfg.num_layers * pairs * seq * per_token_layer + 2 * pairs * (h * h + h)
+
+
+def host_packed(rr, q_texts, rows, texts):
+    """(n, L) ids, mask, types of [CLS] q [SEP] d [SEP] packed on the host
+    with the reranker's caps (tests/test_device_rerank.py's layout)."""
+    tok = rr.ce.tokenizer
+    ids = np.zeros((len(rows), rr.L), np.int32)
+    mask, types = np.zeros_like(ids), np.zeros_like(ids)
+    for i, (q, r) in enumerate(zip(q_texts, rows)):
+        q_ids = tok.tokenize_ids_batch([q], cap=rr.q_len)[0]
+        d_ids = tok.tokenize_ids_batch([texts[r]], cap=rr.d_len)[0]
+        seq = [CLS_ID] + q_ids + [SEP_ID] + d_ids + [SEP_ID]
+        ids[i, :len(seq)] = seq
+        mask[i, :len(seq)] = 1
+        types[i, len(q_ids) + 2:len(seq)] = 1
+    return ids, mask, types
+
+
+def cpu_twins(embedder, ce):
+    """float32 copies of the card's two models on the CPU (same weights)."""
+    import torch
+
+    from radiant_rag_tpu_torch.models.cross_encoder import CrossEncoder
+    from radiant_rag_tpu_torch.models.embedder import Embedder
+
+    def cpu_state(model):
+        return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+    emb = Embedder(dataclasses.replace(embedder.config, dtype="float32"),
+                   params=cpu_state(embedder.model), device="cpu")
+    ce32 = CrossEncoder(ce.config, bert_cfg=dataclasses.replace(ce.bert_cfg, dtype=torch.float32),
+                        params=cpu_state(ce.model), device="cpu")
+    return emb, ce32
+
+
+def check_bf16(card_emb, cpu_emb, card_logits, cpu_logits, what: str) -> str:
+    """The card's bf16 embeddings and logits against a float32 reference,
+    within the stated bf16 tolerance; returns the measured errors."""
+    e_err = float(np.abs(card_emb - cpu_emb).max())
+    cos = float(((card_emb * cpu_emb).sum(1) / np.linalg.norm(card_emb, axis=1)
+                 / np.linalg.norm(cpu_emb, axis=1)).min())
+    l_err = float(np.abs(card_logits - cpu_logits).max())
+    check(e_err <= BF16_EMB_ATOL and cos >= BF16_MIN_COS,
+          f"{what}: embeddings differ by {e_err} (min cosine {cos})")
+    check(l_err <= logit_tol(cpu_logits), f"{what}: logits differ by {l_err}")
+    return (f"embeddings max abs {e_err:.2e} (min cosine {cos:.6f}), logits max abs {l_err:.2e} "
+            f"at |logit| <= {float(np.abs(cpu_logits).max()):.3f}")
+
+
+def phase_models(run, searcher, vecs, texts, queries, qtexts, smi):
+    """Phase 6: the models slice over phase 4's engine and BM25 index. The
+    query embedder feeds `search_rows` on the card (`_qdev`), and the
+    cross-encoder reranks the fused top-40 of every query through the
+    device token table of the 1M corpus texts."""
+    import torch
+
+    from radiant_rag_tpu_torch.config import config_from_dict
+    from radiant_rag_tpu_torch.index.hybrid import embed_queries_device
+    from radiant_rag_tpu_torch.models.device_rerank import DeviceReranker
+    from radiant_rag_tpu_torch.models.registry import LocalNLPModels
+
+    cfg = config_from_dict(MINILM_PRESET)
+    e, c = cfg.embedding, cfg.cross_encoder
+    widths = (384, 12, 12, 1536, 30522)
+    check((e.dim, e.num_layers, e.num_heads, e.hidden_dim, e.vocab_size) == widths
+          and (c.dim, c.num_layers, c.num_heads, c.hidden_dim, c.vocab_size) == widths
+          and (e.max_seq_len, c.max_seq_len, e.dtype, c.dtype)
+          == (256, 384, "bfloat16", "bfloat16"), (e, c))
+    t0 = time.perf_counter()
+    models = LocalNLPModels(cfg)
+    ce = models.cross_encoder
+    check(type(models.embedder.tokenizer).__name__ == "HashTokenizer")
+    rr = DeviceReranker(ce, q_len=Q_LEN, d_len=D_LEN, pair_chunk=PAIR_CHUNK)
+    check(rr.L == 127)
+    log(f"models: MiniLM-L12 width (hidden 384, 12 layers, 12 heads, FFN 1536, vocab 30522), "
+        f"bf16, seeded init, built in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rr.build_table(texts)
+    torch.cuda.synchronize()
+    t_table = time.perf_counter() - t0
+    log(f"rerank token table: {rr.n_rows} docs x {D_LEN} tokens in {t_table:.1f} s "
+        f"({rr._table.numel() * rr._table.element_size() / 1e9:.2f} GB)")
+    eng = searcher.engine
+
+    def chain(i):
+        qt = qtexts[i * BATCH:(i + 1) * BATCH]
+        qdev = embed_queries_device(models, eng, qt)
+        check(qdev is not None and tuple(qdev.shape) == (BATCH, DIM), "no device queries")
+        res = searcher.search_rows(None, qt, dense_k=RERANK_K, bm25_k=RERANK_K,
+                                   fused_k=RERANK_K, mode="int8", fused_depth=0, _qdev=qdev)
+        return qdev, res, rr.rerank_rows(qt, res["fused"][1], top_k=TOP_K)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chain(0)  # warm-up
+    log(f"models chain warm-up: {time.perf_counter() - t0:.1f} s")
+    out, d = run("models chain: embed_device -> search_rows(_qdev) k=40 -> rerank_rows 40->10",
+                 lambda: [chain(i) for i in range(N_BATCHES)], N_BATCHES)
+    check(d["int8_scan_topk"] == 2 * N_BATCHES and sum(d.values()) == 2 * N_BATCHES,
+          f"expected both legs' k = 160 scans per batch, got {d}")
+    peak = torch.cuda.max_memory_allocated()
+
+    # each stage alone on batch 0's inputs
+    qt0 = qtexts[:BATCH]
+    qdev0, res0, _ = out[0]
+    rows0 = res0["fused"][1]
+    def each(fn, n):  # single calls: a stall in one of them shows
+        return [cuda_ms(fn, reps=1, warm=False) for _ in range(n)]
+
+    ms_embeds = each(lambda: embed_queries_device(models, eng, qt0), 3)
+    ms_searches = each(lambda: searcher.search_rows(
+        None, qt0, dense_k=RERANK_K, bm25_k=RERANK_K, fused_k=RERANK_K, mode="int8",
+        fused_depth=0, _qdev=qdev0), 3)
+    ms_embed, ms_search = float(np.median(ms_embeds)), float(np.median(ms_searches))
+    ms_rerank = cuda_ms(lambda: rr.rerank_rows(qt0, rows0, top_k=TOP_K), reps=1, warm=False)
+    q_ids, q_lens = rr._tokenize(qt0, Q_LEN, np.int32)
+    packed = rr.pack_pairs(torch.from_numpy(q_ids).cuda(), torch.from_numpy(q_lens).cuda(),
+                           torch.from_numpy(rows0.astype(np.int64)).cuda())
+    ms_ce = cuda_ms(lambda: rr._scores(*packed), reps=1, warm=False)
+    flat = BATCH * RERANK_K
+    chunk = min(PAIR_CHUNK, 1 << (flat - 1).bit_length())  # DeviceReranker's eff_chunk
+    pairs = -(-flat // chunk) * chunk
+    flops = ce_flops(ce.bert_cfg, pairs, rr.L)
+    tflops = flops / (ms_ce / 1e3) / 1e12
+    log(f"models stages alone (B={BATCH}): embed_queries_device {ms_embed:.1f} ms (median of "
+        f"{[round(m, 1) for m in ms_embeds]}), search_rows (_qdev, k=40) {ms_search:.1f} ms "
+        f"({[round(m, 1) for m in ms_searches]}), rerank_rows (40 -> 10) {ms_rerank:.1f} ms; "
+        f"cross-encoder forward alone {ms_ce:.1f} ms over {pairs} pairs x {rr.L} tokens = "
+        f"{flops:.3e} FLOPs: {tflops:.1f} TFLOP/s, {tflops * 1e12 / BF16_FLOPS_PER_S:.3f} of "
+        f"the dense bf16 peak ({smi})")
+    log(f"models max_memory_allocated: {peak / 2**30:.2f} GiB")
+    del packed
+    profile_batch(lambda: chain(0), "one models-chain batch")
+
+    # (a) the reranked rows are each query's fused rows; empty slots last
+    for qdev, res, (scores, rows) in out:
+        fused = res["fused"][1]
+        check(scores.shape == (BATCH, TOP_K) and rows.shape == (BATCH, TOP_K), rows.shape)
+        live = rows >= 0
+        check(live[:, 0].all() and np.isfinite(scores[live]).all(), "rerank: empty or non-finite")
+        check(np.isneginf(scores[~live]).all() and (np.diff(live.astype(int), axis=1) <= 0).all(),
+              "rerank: row -1 not last with -inf")
+        for i in range(BATCH):
+            check(set(rows[i][live[i]]) <= set(fused[i][fused[i] >= 0]),
+                  f"query {i}: reranked rows outside its fused rows")
+    # (b) device packing == host packing, 64 sampled (query, row) pairs
+    scores0, rrows0 = out[0][2]
+    pick = np.random.default_rng(SEED + 6).choice(BATCH, min(64, BATCH), replace=False)
+    picked_rows = [int(rrows0[i, 0]) for i in pick]
+    host = host_packed(rr, [qt0[i] for i in pick], picked_rows, texts)
+    card_host_logits = ce.forward(*(torch.from_numpy(a).cuda() for a in host)).cpu().numpy()
+    err_b = float(np.abs(card_host_logits - scores0[pick, 0]).max())
+    check(err_b <= logit_tol(card_host_logits),
+          f"device-packed logits differ from host-packed by {err_b}")
+    # (c) embed_device == embed (the host path), padded rows exactly zero
+    host_emb = models.embed([qt0[i] for i in pick])
+    dev_emb = qdev0[torch.from_numpy(pick).cuda()].cpu().numpy()
+    err_c = float(np.abs(host_emb - dev_emb).max())
+    check(err_c <= BF16_EMB_ATOL, f"embed_device differs from embed by {err_c}")
+    padded = models.embed_device(qt0[:100], pad_to=128)
+    check(bool((padded[100:] == 0).all()), "embed_device: padded rows are not zero")
+    # (d) the card's bf16 against a CPU float32 forward of the same weights
+    emb32, ce32 = cpu_twins(models.embedder, ce)
+    cpu_emb = emb32.embed_device([qt0[i] for i in pick], pad_to=len(pick)).numpy()
+    cpu_logits = ce32.forward(*(torch.from_numpy(a) for a in host)).numpy()
+    err_d = check_bf16(dev_emb, cpu_emb, scores0[pick, 0], cpu_logits, "MiniLM-L12 bf16")
+    # (e) the _qdev dense leg's recall against exact fp32 search of the same vectors
+    qhost = qdev0.cpu().numpy()
+    recall = recall_at_10(res0["dense"][1][:, :TOP_K], exact_top10(vecs, qhost))
+    check(recall >= 0.9, f"_qdev dense recall@10 {recall}")
+    log(f"models checks: (a) reranked rows within the fused rows, -1 last; (b) device vs host "
+        f"packing max abs {err_b:.2e}; (c) embed_device vs embed max abs {err_c:.2e}, padded "
+        f"rows zero; (d) card bf16 vs CPU float32: {err_d}; (e) _qdev dense recall@10 "
+        f"{recall:.4f}")
+    log("phase 6 summary: " + json.dumps({
+        "device": smi, "table_build_s": t_table, "chain_launches": d,
+        "stage_ms": {"embed_queries_device": ms_embed, "search_rows_qdev": ms_search,
+                     "rerank_rows": ms_rerank, "ce_forward": ms_ce},
+        "ce_pairs": pairs, "ce_seq": rr.L, "ce_flops": flops, "ce_tflops": tflops,
+        "ce_peak_share": tflops * 1e12 / BF16_FLOPS_PER_S, "max_memory_gib": peak / 2**30,
+        "recall_at_10_qdev": recall}))
+    del models, ce, rr, out, emb32, ce32
+    torch.cuda.empty_cache()
+    phase_shipped(searcher, texts, queries, qtexts)
+
+
+def phase_shipped(searcher, texts, queries, qtexts):
+    """The shipped 128 x 6 artifacts under the default config (preset
+    trainable-small) on the card against a CPU float32 forward, then one
+    hybrid + rerank batch at bench.py's cross-encoder shape (128 hidden, 4
+    layers, 4 heads, FFN 256, vocab 8192, 8192 pairs a chunk; random
+    weights as there)."""
+    import torch
+
+    from radiant_rag_tpu_torch.config import CrossEncoderConfig, config_from_dict
+    from radiant_rag_tpu_torch.models.bert import BertConfig
+    from radiant_rag_tpu_torch.models.cross_encoder import CrossEncoder
+    from radiant_rag_tpu_torch.models.device_rerank import DeviceReranker
+    from radiant_rag_tpu_torch.models.embedder import Embedder
+    from radiant_rag_tpu_torch.models.pretrained import PRETRAINED_DIR
+
+    cfg = config_from_dict({})
+    emb, ce = Embedder(cfg.embedding), CrossEncoder(cfg.cross_encoder)
+    with np.load(PRETRAINED_DIR / "embedder_128x6.npz") as z:
+        check(np.array_equal(emb.model.layer_5.mlp_out.weight.detach().cpu().numpy(),
+                             z["params/layer_5/mlp_out/kernel"].T), "shipped embedder not loaded")
+    with np.load(PRETRAINED_DIR / "cross_encoder_128x6.npz") as z:
+        check(np.array_equal(ce.model.classifier.weight.detach().cpu().numpy(),
+                             z["params/classifier/kernel"].T), "shipped cross-encoder not loaded")
+    qt = qtexts[:64]
+    rows = np.random.default_rng(SEED + 7).integers(0, N_DOCS, len(qt))
+    host = host_packed(DeviceReranker(ce, q_len=Q_LEN, d_len=D_LEN), qt, rows, texts)
+    emb32, ce32 = cpu_twins(emb, ce)
+    card = (emb.embed_device(qt, pad_to=len(qt)).cpu().numpy(),
+            ce.forward(*(torch.from_numpy(a).cuda() for a in host)).cpu().numpy())
+    cpu = (emb32.embed_device(qt, pad_to=len(qt)).numpy(),
+           ce32.forward(*(torch.from_numpy(a) for a in host)).numpy())
+    log(f"shipped 128 x 6 artifacts, card bf16 vs CPU float32 on 64 queries: "
+        f"{check_bf16(card[0], cpu[0], card[1], cpu[1], 'shipped artifacts')}")
+    del emb, ce, emb32, ce32
+
+    bench_ce = CrossEncoder(CrossEncoderConfig(max_seq_len=128, batch_size=512),
+                            bert_cfg=BertConfig(vocab_size=8192, hidden_size=128, num_layers=4,
+                                                num_heads=4, intermediate_size=256,
+                                                dtype=torch.bfloat16))
+    brr = DeviceReranker(bench_ce, pair_chunk=8192)
+    t0 = time.perf_counter()
+    brr.build_table(texts)
+    torch.cuda.synchronize()
+    t_table = time.perf_counter() - t0
+
+    def bench_batch(i):  # bench.py's hybrid_rerank_batch: host queries, k_cand 40
+        qd, qt_ = queries[i * BATCH:(i + 1) * BATCH], qtexts[i * BATCH:(i + 1) * BATCH]
+        res = searcher.search_rows(qd, qt_, dense_k=RERANK_K, bm25_k=RERANK_K, fused_k=RERANK_K,
+                                   mode="int8")
+        return res["fused"][1], brr.rerank_rows(qt_, res["fused"][1], top_k=TOP_K)
+
+    fused0, (_, rows0) = bench_batch(0)  # warm-up
+    check((rows0[:, 0] >= 0).all() and set(rows0[0]) <= set(fused0[0]))
+    ms = [cuda_ms(lambda i=i: bench_batch(i), reps=1, warm=False) for i in range(N_BATCHES)]
+    ms_rr = cuda_ms(lambda: brr.rerank_rows(qtexts[:BATCH], fused0, top_k=TOP_K), reps=2,
+                    warm=False)
+    log(f"bench.py shape (CE 128 hidden x 4 layers, vocab 8192, pair_chunk 8192): token table "
+        f"{t_table:.1f} s; hybrid + rerank {np.median(ms):.1f} ms/batch, median of "
+        f"{[round(m, 1) for m in ms]} ({BATCH / np.median(ms) * 1e3:.1f} QPS); rerank_rows alone "
+        f"{ms_rr:.1f} ms")
+    del bench_ce, brr
+    torch.cuda.empty_cache()
 
 
 def phase_memory_optimized(ck, run, launches, vecs, texts, queries, qtexts):

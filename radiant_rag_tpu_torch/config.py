@@ -1,9 +1,12 @@
-"""Configuration of the retrieval slice: the four sections it reads.
+"""Configuration of the ported slices: the sections they read.
 
-The port's own copy of `IndexConfig`, `QuantizationConfig`, `BM25Config` and
-`RetrievalConfig` from `radiant_rag_tpu/config.py`, with the same fields,
-defaults, coercion of YAML values and validation, so a YAML file gives the
-two packages equal sections. `AppConfig` holds just these four.
+The port's own copy of `IndexConfig`, `QuantizationConfig`, `BM25Config`,
+`RetrievalConfig`, `EmbeddingConfig`, `CrossEncoderConfig` and `CacheConfig`
+from `radiant_rag_tpu/config.py`, with the same fields, defaults, coercion
+of YAML values and validation, so a YAML file gives the two packages equal
+sections. `AppConfig` holds just these seven. The `rerank` section is not
+read until its only reader, the rerank agent, is ported (ROADMAP queue A
+item 11).
 
 Three deviations from the JAX package's `load_config`:
   * it raises when the file is missing, PyYAML is missing or the file does
@@ -15,16 +18,18 @@ Three deviations from the JAX package's `load_config`:
     package reads it;
   * it reads no `RADIANT_*` environment overrides yet (ROADMAP).
 
-One rule of the other sections is kept because it sets `index.dim`: the
-JAX package's `embedding.preset` ("auto" resolves to "trainable-small" for a
-weightless jax embedder) makes `index.dim` follow the embedding width (128
-unless `embedding.dim` is given) when `index.dim` is not pinned.
+The embedding preset is resolved as the JAX package's `load_config` does
+(`_apply_embedding_preset`): "auto" means "trainable-small" for a weightless
+jax embedder; "trainable-small" sets the embedding and (without a
+cross-encoder weights_path) the cross-encoder fields the file does not set
+to the shape of the shipped 128 x 6 artifacts, and `index.dim` follows
+`embedding.dim` unless the file pins it.
 """
 
 from __future__ import annotations
 
 import logging
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field, fields, replace
 from typing import Any, Dict, Optional
 
 logger = logging.getLogger(__name__)
@@ -113,21 +118,76 @@ class RetrievalConfig:
 
 
 @dataclass(frozen=True)
+class EmbeddingConfig:
+    """Embedding model (bi-encoder)."""
+
+    backend: str = "jax"  # jax (the built-in encoder) | openai_compatible
+    model_name: str = "minilm-l12"
+    weights_path: str = ""  # local HF weights; empty: shipped artifact or init
+    preset: str = "auto"  # auto | trainable-small | none (resolved by config_from_dict)
+    dim: int = 384
+    num_layers: int = 12
+    num_heads: int = 12
+    hidden_dim: int = 1536
+    vocab_size: int = 30522
+    max_seq_len: int = 256
+    batch_size: int = 1024
+    normalize: bool = True
+    cache_size: int = 10000
+    dtype: str = "bfloat16"
+    # the JAX package's `train` output (orbax); the port raises when this
+    # directory holds anything (ROADMAP queue A item 12)
+    checkpoint_dir: str = "./data/embedder_ckpt"
+
+
+@dataclass(frozen=True)
+class CrossEncoderConfig:
+    """Cross-encoder reranker (MiniLM-L12 class by default)."""
+
+    backend: str = "jax"  # jax (the built-in encoder) | llm
+    model_name: str = "minilm-l12-cross"
+    weights_path: str = ""
+    max_seq_len: int = 384
+    batch_size: int = 32
+    dtype: str = "bfloat16"
+    dim: int = 384
+    num_layers: int = 12
+    num_heads: int = 12
+    hidden_dim: int = 1536
+    vocab_size: int = 30522
+
+
+@dataclass(frozen=True)
+class CacheConfig:
+    """LRU caches."""
+
+    embedding_cache_size: int = 10000
+    query_cache_size: int = 1000
+    query_cache_ttl_s: float = 3600.0
+
+
+@dataclass(frozen=True)
 class AppConfig:
-    """The sections the retrieval slice reads."""
+    """The sections the ported slices read."""
 
     index: IndexConfig = field(default_factory=IndexConfig)
     quantization: QuantizationConfig = field(default_factory=QuantizationConfig)
     bm25: BM25Config = field(default_factory=BM25Config)
     retrieval: RetrievalConfig = field(default_factory=RetrievalConfig)
+    embedding: EmbeddingConfig = field(default_factory=EmbeddingConfig)
+    cross_encoder: CrossEncoderConfig = field(default_factory=CrossEncoderConfig)
+    cache: CacheConfig = field(default_factory=CacheConfig)
 
 
 _SECTIONS = {"index": IndexConfig, "quantization": QuantizationConfig, "bm25": BM25Config,
-             "retrieval": RetrievalConfig}
+             "retrieval": RetrievalConfig, "embedding": EmbeddingConfig,
+             "cross_encoder": CrossEncoderConfig, "cache": CacheConfig}
 _NEITHER = "read by neither package"
 _GRAPH = "the graph engine, ROADMAP queue A item 10"
 _APP = "read by the app and agent layers, ROADMAP queue A item 11"
 _CALIBRATE = "HybridSearcher.calibrate_fusion, ROADMAP queue A item 7"
+_REMOTE = ("only the non-jax backends read it; they come with the host layers, "
+           "ROADMAP queue A item 11")
 # Fields parsed for parity that the port has no behaviour for: a value
 # other than the default raises, with the reason.
 _NOT_PORTED = {
@@ -140,8 +200,16 @@ _NOT_PORTED = {
                   "calibration_probes": _CALIBRATE,
                   "calibration_paraphrase_fraction": _CALIBRATE,
                   "calibration_seeds": _CALIBRATE},
+    "embedding": {"backend": _REMOTE, "model_name": _REMOTE},
+    "cross_encoder": {"backend": _REMOTE, "model_name": _NEITHER},
+    "cache": {"query_cache_size": _APP, "query_cache_ttl_s": _APP},
 }
-_TRAINABLE_SMALL_DIM = 128  # the JAX package's "trainable-small" embedding width
+# the JAX package's "trainable-small" preset: the shape of the shipped
+# 128 x 6 bi-encoder and cross-encoder artifacts
+_TRAINABLE_SMALL = {"dim": 128, "num_layers": 6, "num_heads": 4, "hidden_dim": 256,
+                    "vocab_size": 8192, "max_seq_len": 64}
+_TRAINABLE_SMALL_CE = {"dim": 128, "num_layers": 6, "num_heads": 4, "hidden_dim": 256,
+                       "vocab_size": 8192, "max_seq_len": 128}
 
 
 def _coerce(value: Any, ftype: type) -> Any:
@@ -168,29 +236,40 @@ def _section(cls: type, data: Dict[str, Any], name: str) -> Any:
     return section
 
 
-def _preset_index_dim(data: Dict[str, Any]) -> Optional[int]:
-    """index.dim as the JAX package's embedding preset sets it, or None."""
-    emb = data.get("embedding") or {}
-    preset = str(emb.get("preset", "auto"))
+def _apply_embedding_preset(sections: Dict[str, Any], data: Dict[str, Any]) -> None:
+    """embedding.preset as the JAX package resolves it (module doc): the
+    keys the file sets win over the preset."""
+    emb = sections["embedding"]
+    preset = emb.preset
     if preset == "auto":
-        weightless_jax = (str(emb.get("backend", "jax")) == "jax"
-                          and not str(emb.get("weights_path", "")))
-        preset = "trainable-small" if weightless_jax else "none"
-    if preset != "trainable-small" or "dim" in (data.get("index") or {}):
-        return None
-    return int(emb.get("dim", _TRAINABLE_SMALL_DIM))
+        preset = "trainable-small" if emb.backend == "jax" and not emb.weights_path else "none"
+    if preset in ("none", ""):
+        return
+    if preset != "trainable-small":
+        logger.warning("unknown embedding.preset %r ignored", preset)
+        return
+
+    def explicit(name):
+        return set(data.get(name) or {})
+
+    sections["embedding"] = replace(emb, **{k: v for k, v in _TRAINABLE_SMALL.items()
+                                            if k not in explicit("embedding")})
+    if "dim" not in explicit("index"):
+        sections["index"] = replace(sections["index"], dim=sections["embedding"].dim)
+    ce = sections["cross_encoder"]
+    if not ce.weights_path:
+        sections["cross_encoder"] = replace(ce, **{k: v for k, v in _TRAINABLE_SMALL_CE.items()
+                                                   if k not in explicit("cross_encoder")})
 
 
 def config_from_dict(data: Optional[Dict[str, Any]]) -> AppConfig:
     """AppConfig from a parsed YAML document: defaults, then the file's
-    values; other sections are read only for the embedding preset's
-    index.dim rule (module doc)."""
+    values, then the embedding preset (module doc). Sections the port does
+    not read yet (`rerank`, `llm`, ...) are ignored."""
     data = data or {}
     sections = {name: _section(cls, data.get(name) or {}, name)
                 for name, cls in _SECTIONS.items()}
-    dim = _preset_index_dim(data)
-    if dim is not None:
-        sections["index"] = IndexConfig(**{**sections["index"].__dict__, "dim": dim})
+    _apply_embedding_preset(sections, data)
     cfg = AppConfig(**sections)
     cfg.quantization.validate()
     return cfg

@@ -8,11 +8,17 @@ package built, which holds search semantics apart from build semantics.
 A directory the JAX package's `TpuVectorStore.save` wrote needs no
 conversion: the port's store reads the same format (`store_from_jax_dir`),
 as `PersistentBM25Index` reads the JAX package's gzip-JSON BM25 file.
+
+Model weights: `bert_params_from_jax` / `cross_encoder_params_from_jax`
+turn a flax parameter tree (numpy leaves) into the port's `state_dict`. The
+port's modules carry the flax names, so each leaf is renamed (`kernel`,
+`scale`, `embedding` -> `weight`) and each Dense kernel (in, out) is
+transposed to the (out, in) layout of `nn.Linear`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -114,3 +120,51 @@ def store_from_jax_dir(path: str, index_config: Optional[IndexConfig] = None,
     (`docs/` segments, `engine.npz`, `manifest.json`)."""
     return TpuVectorStore.load(path, index_config=index_config, quantization=quantization,
                                device=device)
+
+
+_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
+
+
+def params_from_flat(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's state_dict from flax leaves keyed by '/'-joined tree paths
+    (`layer_0/attention/query/kernel`, an npz artifact's keys without the
+    leading `params/`)."""
+    out = {}
+    for key, value in flat.items():
+        *path, leaf = key.split("/")
+        arr = np.asarray(value, np.float32)
+        arr = np.array(arr.T if leaf == "kernel" else arr, order="C")  # an owned copy
+        out[".".join(path + [_LEAF_NAMES[leaf]])] = torch.from_numpy(arr)
+    return out
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    flat = {}
+    for name, value in tree.items():
+        if isinstance(value, Mapping):
+            flat.update(_flatten(value, f"{prefix}{name}/"))
+        else:
+            flat[prefix + name] = value
+    return flat
+
+
+def _unwrap(tree: Mapping[str, Any]) -> Mapping[str, Any]:
+    return tree["params"] if set(tree) == {"params"} else tree
+
+
+def bert_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A `BertEncoder` state_dict from the JAX package's BertEncoder params
+    ({"params": {...}} or the inner tree, numpy leaves)."""
+    tree = _unwrap(tree)
+    if "bert" in tree:
+        raise ValueError("a cross-encoder tree: use cross_encoder_params_from_jax")
+    return params_from_flat(_flatten(tree))
+
+
+def cross_encoder_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A `CrossEncoderModel` state_dict (bert.*, pooler, classifier) from the
+    JAX package's CrossEncoderModel params."""
+    tree = _unwrap(tree)
+    if set(tree) != {"bert", "pooler", "classifier"}:
+        raise ValueError(f"not a cross-encoder tree: {sorted(tree)}")
+    return params_from_flat(_flatten(tree))

@@ -1,9 +1,12 @@
-"""ctypes bridge to the native (C++) bulk BM25 builder and query tokenizer.
+"""ctypes bridges to the native (C++) BM25 bulk build and the model tokenizers.
 
-The port's own bridge to the shared source `native/bm25_build.cpp` (read,
-never edited). It is compiled with `g++ -O3` at first use into
-`build/native/` at the root of the checkout, named by a hash of the source.
-Without a compiler the callers take their Python paths (`index/bm25.py`).
+The port's own bridges to the shared sources `native/bm25_build.cpp` (bulk
+BM25 build, query term ids) and `native/tokenizer.cpp` (FNV-1a hash and
+greedy WordPiece tokenizers over ASCII texts), read, never edited. Each is
+compiled with `g++ -O3` at first use into `build/native/` at the root of the
+checkout, named by a hash of its source. Without a compiler the callers take
+their Python paths (`index/bm25.py`, `models/tokenizer.py`), which give the
+same ids.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -23,27 +26,31 @@ logger = logging.getLogger(__name__)
 
 _ROOT = Path(__file__).resolve().parent.parent.parent
 _SRC = _ROOT / "native" / "bm25_build.cpp"
+_TOK_SRC = _ROOT / "native" / "tokenizer.cpp"
 _BUILD_DIR = _ROOT / "build" / "native"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _lib_failed = False
+_tok_lib: Optional[ctypes.CDLL] = None
+_tok_failed = False
 
 
-def _compile() -> Optional[Path]:
-    if not _SRC.is_file():
+def _compile(src: Path) -> Optional[Path]:
+    """g++-compile one source into a shared object named by its hash."""
+    if not src.is_file():
         return None
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
-    so = _BUILD_DIR / f"bm25_build_{digest}.so"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    so = _BUILD_DIR / f"{src.stem}_{digest}.so"
     if so.is_file():
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", str(_SRC), "-o", str(tmp)]
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", str(src), "-o", str(tmp)]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
     except (OSError, subprocess.SubprocessError) as exc:
-        logger.info("native bm25 builder unavailable (%s); using the python path", exc)
+        logger.info("native %s unavailable (%s); using the python path", src.stem, exc)
         return None
     os.replace(tmp, so)
     return so
@@ -54,7 +61,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None or _lib_failed:
             return _lib
-        so = _compile()
+        so = _compile(_SRC)
         if so is None:
             _lib_failed = True
             return None
@@ -196,3 +203,99 @@ def bulk_build(texts: Sequence[str], rows: Sequence[int]) -> Optional[NativeBM25
         )
     finally:
         lib.bm25_build_free(handle)
+
+
+# --------------------------------------------------------------------------- #
+# Tokenizer bridge (native/tokenizer.cpp)
+# --------------------------------------------------------------------------- #
+
+def get_tok_lib() -> Optional[ctypes.CDLL]:
+    """The native tokenizer (compiled on first use); None without a compiler."""
+    global _tok_lib, _tok_failed
+    with _lock:
+        if _tok_lib is not None or _tok_failed:
+            return _tok_lib
+        so = _compile(_TOK_SRC)
+        if so is None:
+            _tok_failed = True
+            return None
+        lib = ctypes.CDLL(str(so))
+        lib.tok_hash_batch.restype = None
+        lib.tok_hash_batch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.wp_new.restype = ctypes.c_void_p
+        lib.wp_new.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32]
+        lib.wp_free.restype = None
+        lib.wp_free.argtypes = [ctypes.c_void_p]
+        lib.wp_tokenize_batch.restype = None
+        lib.wp_tokenize_batch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p]
+        _tok_lib = lib
+        return _tok_lib
+
+
+def _ragged(out_ids: np.ndarray, out_lens: np.ndarray) -> List[List[int]]:
+    return [out_ids[i, :out_lens[i]].tolist() for i in range(len(out_lens))]
+
+
+def hash_tokenize_batch(texts: Sequence[str], vocab_size: int, reserved: int,
+                        max_ids: int) -> Optional[List[List[int]]]:
+    """FNV-1a hash token ids of ASCII texts, at most max_ids each; None when
+    the native path is unavailable. Callers route non-ASCII texts to Python."""
+    lib = get_tok_lib()
+    if lib is None or not texts:
+        return None
+    buf, offsets = _pack_blobs(texts)
+    n = len(texts)
+    out_ids = np.empty((n, max_ids), np.int32)
+    out_lens = np.empty((n,), np.int32)
+    lib.tok_hash_batch(ctypes.cast(ctypes.c_char_p(buf), ctypes.c_void_p),
+                       offsets.ctypes.data_as(ctypes.c_void_p), n, vocab_size, reserved,
+                       max_ids, out_ids.ctypes.data_as(ctypes.c_void_p),
+                       out_lens.ctypes.data_as(ctypes.c_void_p))
+    return _ragged(out_ids, out_lens)
+
+
+class NativeWordPiece:
+    """A native greedy-WordPiece vocabulary, built once and reused."""
+
+    def __init__(self, vocab: Dict[str, int], unk_id: int, lowercase: bool,
+                 max_chars_per_word: int) -> None:
+        lib = get_tok_lib()
+        if lib is None:
+            raise RuntimeError("native tokenizer unavailable")
+        self._lib = lib
+        terms = list(vocab)
+        ids = np.asarray([vocab[t] for t in terms], np.int32)
+        buf, offsets = _pack_blobs(terms)
+        self._handle = lib.wp_new(ctypes.cast(ctypes.c_char_p(buf), ctypes.c_void_p),
+                                  offsets.ctypes.data_as(ctypes.c_void_p), len(terms),
+                                  ids.ctypes.data_as(ctypes.c_void_p), unk_id,
+                                  1 if lowercase else 0, max_chars_per_word)
+
+    def tokenize_batch(self, texts: Sequence[str], max_ids: int) -> List[List[int]]:
+        if not texts:
+            return []
+        buf, offsets = _pack_blobs(texts)
+        n = len(texts)
+        out_ids = np.empty((n, max_ids), np.int32)
+        out_lens = np.empty((n,), np.int32)
+        self._lib.wp_tokenize_batch(self._handle,
+                                    ctypes.cast(ctypes.c_char_p(buf), ctypes.c_void_p),
+                                    offsets.ctypes.data_as(ctypes.c_void_p), n, max_ids,
+                                    out_ids.ctypes.data_as(ctypes.c_void_p),
+                                    out_lens.ctypes.data_as(ctypes.c_void_p))
+        return _ragged(out_ids, out_lens)
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.wp_free(self._handle)
+            self._handle = None
+
+    def __del__(self) -> None:
+        self.close()

@@ -275,3 +275,94 @@ def test_hybrid_on_card_equals_cpu_path(card, route, select):
         out.append(HybridSearcher(eng, bm).search_rows(q, qt, bm25_mode=route, select=select,
                                                        fused_depth=40))
     assert_result_match(out[0], out[1], f"card vs cpu, {route} {select}")
+
+
+# -- the models slice on the card ------------------------------------------------
+
+def _small_models(device, dtype, params=None):
+    from radiant_rag_tpu_torch.config import CrossEncoderConfig, EmbeddingConfig
+    from radiant_rag_tpu_torch.models.cross_encoder import CrossEncoder
+    from radiant_rag_tpu_torch.models.embedder import Embedder
+
+    emb = Embedder(EmbeddingConfig(preset="none", dim=64, num_layers=2, num_heads=4,
+                                   hidden_dim=128, vocab_size=2048, max_seq_len=64,
+                                   dtype=dtype, checkpoint_dir=""),
+                   params=params and params[0], device=device)
+    ce = CrossEncoder(CrossEncoderConfig(dim=64, num_layers=2, num_heads=4, hidden_dim=128,
+                                         vocab_size=2048, max_seq_len=64, dtype=dtype),
+                      params=params and params[1], device=device)
+    return emb, ce
+
+
+def _state(model):
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_models_on_card_equal_cpu(card, dtype):
+    """The same weights on the card and on the CPU (float32 on the CPU). In
+    float32 the card's GEMMs sum in another order (rtol 1e-4 / atol 1e-5;
+    TF32 off); in bf16 within chip_smoke.py's bf16 tolerance."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emb_c, ce_c = _small_models("cpu", "float32")
+    emb_g, ce_g = _small_models(card, dtype, (_state(emb_c.model), _state(ce_c.model)))
+    texts = [f"card text {i} about topic {i % 7} " * (1 + i % 5) for i in range(40)]
+    got, ref = emb_g.embed(texts), emb_c.embed(texts)
+    pairs = [(f"topic {i % 7}", t) for i, t in enumerate(texts)]
+    gs, rs = ce_g.score_pairs(pairs), ce_c.score_pairs(pairs)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(gs, rs, rtol=1e-4, atol=1e-5)
+    else:
+        assert np.abs(got - ref).max() <= 3e-2
+        assert np.abs(gs - rs).max() <= 5e-2 * max(1.0, np.abs(rs).max())
+    dev = emb_g.embed_device(texts[:5], pad_to=8)
+    assert dev.device.type == "cuda" and bool((dev[5:] == 0).all())
+
+
+def test_qdev_chain_on_card_equals_cpu(card):
+    """embed_queries_device -> search_rows(_qdev) -> rerank_rows on the card
+    against the same chain on the CPU, float32 models: rows equal up to
+    tied swaps, rerank rows equal."""
+    from radiant_rag_tpu_torch.index.bm25 import BM25Index
+    from radiant_rag_tpu_torch.index.engine import DeviceVectorIndex
+    from radiant_rag_tpu_torch.index.hybrid import HybridSearcher, embed_queries_device
+    from radiant_rag_tpu_torch.models.device_rerank import DeviceReranker
+    from radiant_rag_tpu_torch.models.registry import LocalNLPModels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(11)
+    n = 4000
+    texts = [" ".join(f"w{t}" for t in row) for row in rng.zipf(1.3, (n, 24)) % 3000]
+    qt = [" ".join(texts[i].split()[:6]) for i in rng.integers(0, n, 37)]
+    emb_c, ce_c = _small_models("cpu", "float32")
+    vecs = emb_c.embed(texts)
+    out = []
+    for dev in ("cpu", card):
+        emb, ce = ((emb_c, ce_c) if dev == "cpu" else
+                   _small_models(dev, "float32", (_state(emb_c.model), _state(ce_c.model))))
+        eng = DeviceVectorIndex(64, initial_capacity=n, device=dev)
+        eng.append(vecs, np.zeros(n, np.int8), np.zeros(n, np.int32), np.full(n, 24, np.float32))
+        bm = BM25Index(device=dev, sketch_dim=256)
+        bm.bulk_build(list(range(n)), texts)
+        hs = HybridSearcher(eng, bm)
+        models = LocalNLPModels(embedder=emb, cross_encoder=ce)
+        rr = DeviceReranker(ce, pair_chunk=512)
+        rr.build_table(texts)
+        qdev = embed_queries_device(models, eng, qt)
+        res = hs.search_rows(None, qt, dense_k=40, bm25_k=40, fused_k=40, mode="int8",
+                             bm25_mode="sketch", _qdev=qdev)
+        out.append((res, rr.rerank_rows(qt, res["fused"][1], top_k=10)))
+    assert_result_match(out[0][0], out[1][0], "qdev chain card vs cpu")
+    np.testing.assert_array_equal(out[1][1][1], out[0][1][1])
+    np.testing.assert_allclose(out[1][1][0], out[0][1][0], rtol=1e-4, atol=1e-5)
+
+
+def test_bf16_softmax_rounds_once_on_card(card):
+    """models/bert.py takes torch's softmax of the bf16 logits as the JAX
+    package's float32 softmax rounded to bf16: equal on the card."""
+    g = torch.Generator(device=card).manual_seed(5)
+    x = (torch.randn((64, 12, 127, 127), generator=g, device=card) * 3).to(torch.bfloat16)
+    x[..., 100:] = -1e9
+    assert torch.equal(torch.softmax(x, -1),
+                       torch.softmax(x, -1, dtype=torch.float32).to(torch.bfloat16))

@@ -178,3 +178,154 @@ def test_empty_engine_returns_no_rows():
     assert res["fused"][1].shape == (3, 15) and (res["fused"][1] == -1).all()
     _, unpack = hs.search_rows(np.zeros((3, D), np.float32), ["a", "b", "c"], fetch=False)
     assert (unpack()["dense"][1] == -1).all()
+
+
+# -- the models slice: embed_queries_device -> search_rows(_qdev) -> rerank --
+
+@pytest.fixture(scope="module")
+def chain():
+    """Both packages' models (dtype float32, weights carried across) over one
+    corpus whose vectors are the JAX embedder's embeddings of its texts."""
+    import jax
+
+    from radiant_rag_tpu.config import CrossEncoderConfig as JaxCEConfig
+    from radiant_rag_tpu.config import EmbeddingConfig as JaxEmbConfig
+    from radiant_rag_tpu.models.cross_encoder import CrossEncoder as JaxCE
+    from radiant_rag_tpu.models.device_rerank import DeviceReranker as JaxReranker
+    from radiant_rag_tpu.models.embedder import Embedder as JaxEmbedder
+    from radiant_rag_tpu.models.registry import LocalNLPModels as JaxModels
+    from radiant_rag_tpu_torch.config import CrossEncoderConfig, EmbeddingConfig
+    from radiant_rag_tpu_torch.convert import bert_params_from_jax, cross_encoder_params_from_jax
+    from radiant_rag_tpu_torch.models.cross_encoder import CrossEncoder
+    from radiant_rag_tpu_torch.models.device_rerank import DeviceReranker
+    from radiant_rag_tpu_torch.models.embedder import Embedder
+    from radiant_rag_tpu_torch.models.registry import LocalNLPModels
+
+    d, n = 32, 2000
+    emb = dict(preset="none", dim=d, num_layers=2, num_heads=4, hidden_dim=64, vocab_size=2048,
+               max_seq_len=32, batch_size=256, dtype="float32", checkpoint_dir="")
+    ce = dict(dim=d, num_layers=1, num_heads=4, hidden_dim=64, vocab_size=2048, max_seq_len=64,
+              dtype="float32")
+    jemb, jce = JaxEmbedder(JaxEmbConfig(**emb), seed=2), JaxCE(JaxCEConfig(**ce), seed=3)
+    temb = Embedder(EmbeddingConfig(**emb), device="cpu",
+                    params=bert_params_from_jax(jax.tree.map(np.asarray, jemb.params)))
+    tce = CrossEncoder(CrossEncoderConfig(**ce), device="cpu",
+                       params=cross_encoder_params_from_jax(jax.tree.map(np.asarray, jce.params)))
+    rng = np.random.default_rng(5)
+    texts = [" ".join(f"w{t}" for t in row) for row in rng.zipf(1.3, (n, 24)) % 2000]
+    vecs = jemb.embed(texts)
+    je, te = JaxEngine(d, initial_capacity=n), DeviceVectorIndex(d, initial_capacity=n,
+                                                                device="cpu")
+    for eng in (je, te):
+        eng.append(vecs, np.zeros(n, np.int8), np.zeros(n, np.int32), np.full(n, 24, np.float32))
+    jb, tb = JaxBM25(sketch_dim=S), BM25Index(sketch_dim=S, device="cpu")
+    jb.bulk_build(list(range(n)), texts)
+    tb.bulk_build(list(range(n)), texts)
+    jr, tr = JaxReranker(jce, pair_chunk=256), DeviceReranker(tce, pair_chunk=256)
+    jr.build_table(texts)
+    tr.build_table(texts)
+    qt = [" ".join(texts[i].split()[:6]) for i in rng.integers(0, n, 21)]
+    return {"j": (JaxModels(embedder=jemb, cross_encoder=jce), JaxHybrid(je, jb), jr),
+            "t": (LocalNLPModels(embedder=temb, cross_encoder=tce), HybridSearcher(te, tb), tr),
+            "qt": qt}
+
+
+def _chain(models, searcher, reranker, qt, bm25_mode):
+    from radiant_rag_tpu.index.hybrid import embed_queries_device as jax_embed_queries_device
+    from radiant_rag_tpu_torch.index.hybrid import embed_queries_device
+
+    fn = embed_queries_device if isinstance(searcher, HybridSearcher) else jax_embed_queries_device
+    qdev = fn(models, searcher.engine, qt)
+    res = searcher.search_rows(None, qt, dense_k=40, bm25_k=40, fused_k=40, mode="int8",
+                               bm25_mode=bm25_mode, fused_depth=0, _qdev=qdev)
+    return qdev, res, reranker.rerank_rows(qt, res["fused"][1], top_k=10)
+
+
+@pytest.mark.parametrize("bm25_mode", ["sketch", "pages"])
+def test_models_slice_chain_matches_jax(chain, bm25_mode):
+    """embed_queries_device -> search_rows(_qdev) -> rerank_rows, at float32:
+    the JAX chain's rows exactly, scores within tests/_torch_parity.py's
+    tolerance (the rerank's logits within 1e-5)."""
+    jq, jres, jrr = _chain(*chain["j"], chain["qt"], bm25_mode)
+    tq, tres, trr = _chain(*chain["t"], chain["qt"], bm25_mode)
+    assert isinstance(tq, torch.Tensor) and tq.shape == (32, 32) and (tq[21:] == 0).all()
+    np.testing.assert_allclose(tq.numpy(), np.asarray(jq), rtol=1e-5, atol=1e-6)
+    assert_result_match(jres, tres, f"chain {bm25_mode}")
+    np.testing.assert_array_equal(trr[1], jrr[1])
+    live = jrr[1] >= 0
+    np.testing.assert_allclose(trr[0][live], jrr[0][live], rtol=1e-5, atol=1e-5)
+    for q in range(len(chain["qt"])):  # the reranked rows are the query's fused rows
+        assert set(trr[1][q][trr[1][q] >= 0]) <= set(tres["fused"][1][q])
+
+
+def test_qdev_queries_skip_the_fp16_rounding(chain):
+    """Host queries are rounded through fp16 on the sketch route (as the JAX
+    blob ships them); device queries are not, on either package: the dense
+    scores are the f32 query's exact rescore."""
+    models, searcher, _ = chain["t"]
+    qt = chain["qt"]
+    qdev = models.embed_device(qt, pad_to=32)
+    q = qdev[:len(qt)].numpy()
+    on_dev = searcher.search_rows(None, qt, mode="int8", bm25_mode="sketch", _qdev=qdev)
+    on_host = searcher.search_rows(q, qt, mode="int8", bm25_mode="sketch")
+    vecs = searcher.engine.vecs.numpy()
+    s, rows = on_dev["dense"]
+    exact = np.einsum("bd,bkd->bk", q, vecs[rows])
+    np.testing.assert_allclose(s, exact, rtol=1e-5, atol=1e-6)
+    q16 = q.astype(np.float16).astype(np.float32)
+    hs, hrows = on_host["dense"]
+    np.testing.assert_allclose(hs, np.einsum("bd,bkd->bk", q16, vecs[hrows]), rtol=1e-5,
+                               atol=1e-6)
+    assert np.abs(s - np.einsum("bd,bkd->bk", q16, vecs[rows])).max() > 1e-5
+    jmodels, jsearcher, _ = chain["j"]
+    import jax.numpy as jnp
+
+    ref = jsearcher.search_rows(None, qt, mode="int8", bm25_mode="sketch",
+                                _qdev=jnp.asarray(qdev.numpy()))
+    assert_result_match(ref, on_dev, "qdev sketch")
+
+
+def test_embed_queries_device_returns_none_only_where_jax_does(chain):
+    from radiant_rag_tpu_torch.index.hybrid import embed_queries_device
+
+    models, searcher, _ = chain["t"]
+    eng = searcher.engine
+    assert embed_queries_device(object(), eng, ["a"]) is None  # no embed_device
+    assert embed_queries_device(models, DeviceVectorIndex(16, device="cpu"), ["a"]) is None
+    too_many = ["q"] * (eng.QUERY_BUCKETS[-1] + 1)
+    assert embed_queries_device(models, eng, too_many) is None
+    assert embed_queries_device(models, eng, ["a", "b", "c"]).shape == (4, 32)
+
+    class Broken:
+        embedding_dimension = 32
+
+        def embed_device(self, texts, pad_to):
+            raise RuntimeError("device path broken")
+
+    with pytest.raises(RuntimeError, match="device path broken"):  # no silent host fallback
+        embed_queries_device(Broken(), eng, ["a"])
+    with pytest.raises(ValueError, match="bucket"):
+        searcher.search_rows(None, ["a", "b"], bm25_mode="sketch",
+                             _qdev=torch.zeros((8, 32)))
+
+
+def test_oversized_qdev_batch_is_chunked_through_the_host(chain):
+    """Past the gated bucket the device queries are fetched and chunked as
+    host queries (the JAX package does the same), so the result equals the
+    host-query search of the same vectors."""
+    models, searcher, _ = chain["t"]
+    qt = chain["qt"]
+    qdev = models.embed_device(qt, pad_to=32)
+    eng = searcher.engine
+    saved = eng.usable_bytes
+    try:
+        eng.usable_bytes = (eng.resident_bytes() + searcher.bm25.device_bytes_projected(
+            eng.capacity) + 8 * eng.capacity * 24)
+        assert searcher.max_query_bucket() == 8
+        got = searcher.search_rows(None, qt, bm25_mode="sketch", _qdev=qdev)
+        ref = searcher.search_rows(qdev[:len(qt)].numpy(), qt, bm25_mode="sketch")
+    finally:
+        eng.usable_bytes = saved
+    for leg in ref:
+        np.testing.assert_array_equal(got[leg][1], ref[leg][1])
+        np.testing.assert_array_equal(got[leg][0], ref[leg][0])

@@ -21,7 +21,9 @@ bad = [m for m in sys.modules
        or m == "radiant_rag_tpu" or m.startswith("radiant_rag_tpu.")]
 assert not bad, bad
 new = {"config", "index.base", "index.doc", "index.docstore", "index.factory",
-       "index.numpy_store", "index.store"}
+       "index.numpy_store", "index.store", "models", "models.bert", "models.cross_encoder",
+       "models.device_rerank", "models.embedder", "models.hf_loading", "models.pretrained",
+       "models.registry", "models.tokenizer", "utils.cache"}
 assert {"radiant_rag_tpu_torch." + m for m in new} <= set(names), names
 import torch
 assert not torch.cuda.is_available()
@@ -30,10 +32,14 @@ from radiant_rag_tpu_torch.index.bm25 import BM25Index, PersistentBM25Index
 from radiant_rag_tpu_torch.index.engine import DeviceVectorIndex
 from radiant_rag_tpu_torch.index.factory import create_vector_store
 from radiant_rag_tpu_torch.index.store import TpuVectorStore
+from radiant_rag_tpu_torch.models.cross_encoder import CrossEncoder
+from radiant_rag_tpu_torch.models.embedder import Embedder
+from radiant_rag_tpu_torch.models.registry import LocalNLPModels
 for make in (lambda: DeviceVectorIndex(64), lambda: BM25Index(),
              lambda: DeviceVectorIndex(64, device="cuda"), lambda: TpuVectorStore(64),
              lambda: create_vector_store(config_from_dict({})),
-             lambda: PersistentBM25Index(None)):
+             lambda: PersistentBM25Index(None), lambda: Embedder(), lambda: CrossEncoder(),
+             lambda: LocalNLPModels(), lambda: Embedder(device="cuda")):
     try:
         make()
     except RuntimeError as exc:
@@ -41,6 +47,8 @@ for make in (lambda: DeviceVectorIndex(64), lambda: BM25Index(),
     else:
         raise AssertionError("an entry point fell back to the CPU")
 DeviceVectorIndex(64, device="cpu")
+from radiant_rag_tpu_torch.models.device_rerank import DeviceReranker
+assert DeviceReranker(CrossEncoder(device="cpu")).device == torch.device("cpu")
 print("ok", len(names))
 """
 
@@ -83,3 +91,64 @@ def test_load_config_raises_instead_of_serving_defaults(tmp_path, caplog):
     scalar.write_text("just a string\n")
     with pytest.raises(ValueError, match="mapping"):
         load_config(str(scalar))
+
+
+def test_quality_preset_dict_still_parses():
+    """The quality preset sets rerank.* (and other sections the port does
+    not read yet): the port parses it without reading the rerank section."""
+    import importlib.util
+
+    from radiant_rag_tpu_torch.config import config_from_dict
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = config_from_dict(smoke.QUALITY_OPTIMIZED_PRESET)
+    assert smoke.QUALITY_OPTIMIZED_PRESET["rerank"] == {"top_k": 10, "candidate_multiplier": 6}
+    assert not hasattr(cfg, "rerank")
+    assert cfg.retrieval.fused_top_k == 30 and cfg.embedding.dim == 128
+
+
+@pytest.mark.parametrize("data", [
+    {},
+    {"embedding": {"preset": "none"}},
+    {"embedding": {"preset": "trainable-small", "dim": 256, "max_seq_len": 128}},
+    {"embedding": {"dim": 96}, "index": {"dim": 64}},
+    {"embedding": {"weights_path": "/models/minilm"}},
+    {"embedding": {"preset": "trainable-small", "weights_path": "/models/minilm"},
+     "cross_encoder": {"weights_path": "/models/ce", "dtype": "float32"}},
+    {"cross_encoder": {"num_layers": 2, "max_seq_len": 256}},
+    {"embedding": {"preset": "mystery"}},
+])
+def test_embedding_preset_resolves_every_field_as_jax_load_config(data, tmp_path, monkeypatch):
+    """Every embedding, cross-encoder, cache and index field as the JAX
+    package's load_config resolves it from the same YAML."""
+    import dataclasses
+
+    yaml = pytest.importorskip("yaml")
+    from radiant_rag_tpu import config as jcfg
+    from radiant_rag_tpu_torch import config as tcfg
+
+    for key in list(os.environ):
+        if key.startswith("RADIANT_"):
+            monkeypatch.delenv(key)
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(data))
+    ref, got = jcfg.load_config(str(path)), tcfg.config_from_dict(data)
+    for section in ("embedding", "cross_encoder", "cache", "index"):
+        assert dataclasses.asdict(getattr(got, section)) == \
+            dataclasses.asdict(getattr(ref, section)), (section, data)
+
+
+@pytest.mark.parametrize("section,key,value,reason", [
+    ("embedding", "backend", "openai_compatible", "queue A item 11"),
+    ("embedding", "model_name", "bge-small", "queue A item 11"),
+    ("cross_encoder", "backend", "llm", "queue A item 11"),
+    ("cross_encoder", "model_name", "other", "neither package"),
+    ("cache", "query_cache_size", 10, "queue A item 11"),
+])
+def test_model_fields_without_a_behaviour_raise(section, key, value, reason):
+    from radiant_rag_tpu_torch.config import config_from_dict
+
+    with pytest.raises(NotImplementedError, match=reason):
+        config_from_dict({section: {key: value}})

@@ -38,7 +38,16 @@ seed: 1M docs of clustered 384-d vectors and zipfian 48-token texts):
            a profile and the checks of the models against host packing, the
            host embed path and a CPU float32 forward; then the shipped
            128 x 6 artifacts on the card against the CPU, and one batch at
-           bench.py's cross-encoder shape.
+           bench.py's cross-encoder shape;
+  phase 7  the serving entry point at that width (after phase 5): a
+           `TpuVectorStore` of the corpus under the default preset,
+           `RadiantTPU` over it (its BM25 index built from the store),
+           `ingest_chunks` of 16,384 more chunks, the fusion calibration
+           the first search runs, `warmup`, then `make_server` on
+           127.0.0.1 under 256 concurrent keep-alive clients through the
+           request coalescer, a profiled window, the batch API at 2048
+           queries, one batch's stage split and the dense leg's recall;
+           every response is held against `search_batch` of its batch.
 
 Prints the card's name and power limit, the phases' numbers, one
 {"kernels": [...]} JSON line, and as its last line
@@ -274,6 +283,26 @@ def blockmax_row(ck, label, codes, qi, mask):
                       ("blockmax2", d, 0, b), library_mm)
 
 
+def hamming_scan_row(ck, label, codes, qwords, mask, k, csign):
+    """A hamming_scan_topk row; `csign` is the codes' +-1 sign matrix, the
+    library yardstick's operand (<s_q, s_c> = 32 W - 2 hamming)."""
+    import torch
+
+    n, w = codes.shape
+    b = qwords.shape[0]
+    qsign = ck.sign_matrix(qwords)
+
+    def library_mm():
+        sc = torch._int_mm(qsign, csign.T)
+        return sc.masked_fill_(~mask[None, :], torch.iinfo(torch.int32).min)
+
+    return kernel_row("hamming_scan_topk", label, ck.hamming_scan_topk,
+                      ck.hamming_scan_topk_reference, (codes, qwords, mask, k),
+                      lambda: torch.topk(library_mm(), k, dim=1),
+                      n * w * 4 + b * w * 4 + n + b * k * 8, 2.0 * b * n * 32 * w,
+                      ("hamming_scan_topk", w, k, b), library_mm)
+
+
 def hamming_rows(ck, codes, qwords, mask):
     """The Hamming kernels at the main path's inputs: the engine's sign
     words, the batch's packed queries (B = 2048 for the fused scan, 1024 for
@@ -281,23 +310,11 @@ def hamming_rows(ck, codes, qwords, mask):
     import torch
 
     n, w = codes.shape
-    rows = []
-    # the library's operands: the +-1 sign matrices, <s_q, s_c> = 32 W - 2 hamming
     csign = ck.sign_matrix(codes)
     qsign = ck.sign_matrix(qwords)
-
-    def library_mm():
-        sc = torch._int_mm(qsign, csign.T)
-        return sc.masked_fill_(~mask[None, :], torch.iinfo(torch.int32).min)
-
-    for k in (60, 240, 360):
-        b = qwords.shape[0]
-        rows.append(kernel_row(
-            "hamming_scan_topk", f"W={w} B={b} k={k}", ck.hamming_scan_topk,
-            ck.hamming_scan_topk_reference, (codes, qwords, mask, k),
-            lambda k=k: torch.topk(library_mm(), k, dim=1),
-            n * w * 4 + b * w * 4 + n + b * k * 8, 2.0 * b * n * 32 * w,
-            ("hamming_scan_topk", w, k, b), library_mm))
+    b = qwords.shape[0]
+    rows = [hamming_scan_row(ck, f"W={w} B={b} k={k}", codes, qwords, mask, k, csign)
+            for k in (60, 240, 360)]
     b = 1024
     q1, qs1 = qwords[:b].contiguous(), qsign[:b].contiguous()
     codes_t = codes.T.contiguous()
@@ -539,10 +556,11 @@ def log_sass(_build) -> None:
                   f"{stem}: expected tensor-core instructions and no IDP.4A in {list(tiles)}")
 
 
-def profile_batch(fn, what: str) -> None:
+def profile_batch(fn, what: str):
     """Device time by kernel and the device's idle share over one batch
-    (torch.profiler, CUPTI). Measurement only: without device events it
-    says "not measured" and the run goes on."""
+    (torch.profiler, CUPTI); returns the idle share. Measurement only:
+    without device events it says "not measured", returns None and the run
+    goes on."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -556,7 +574,7 @@ def profile_batch(fn, what: str) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0]
     if not kernels:
         log(f"profile ({what}): no device events (device time not measured)")
-        return
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s0, e0 in spans[1:]:
@@ -573,11 +591,13 @@ def profile_batch(fn, what: str) -> None:
         f"{busy / 1e3:.1f} ms, idle share {max(0.0, 1 - busy / wall_us):.3f}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {us / 1e3:9.3f} ms  {name[:110]}")
+    return max(0.0, 1 - busy / wall_us)
 
 
-def exact_top10(vecs: np.ndarray, q: np.ndarray):
-    """Recall oracle: exact fp32 cosine top-10 over the host vectors, a
-    plain matmul on the card in row chunks (off the path under test)."""
+def exact_top10(vecs, q: np.ndarray, valid=None):
+    """Recall oracle: exact fp32 cosine top-10, a plain matmul on the card
+    in row chunks (off the path under test). `vecs`: host vectors, or an
+    engine's device rows with their `valid` mask."""
     import torch
 
     qd = torch.from_numpy(q).cuda()
@@ -585,7 +605,10 @@ def exact_top10(vecs: np.ndarray, q: np.ndarray):
     best_i = torch.full((q.shape[0], TOP_K), -1, dtype=torch.int64, device="cuda")
     step = 1 << 17
     for s in range(0, vecs.shape[0], step):
-        sc = qd @ torch.from_numpy(vecs[s:s + step]).cuda().T
+        v = vecs[s:s + step]
+        sc = qd @ (torch.from_numpy(v).cuda() if isinstance(v, np.ndarray) else v).T
+        if valid is not None:
+            sc.masked_fill_(~valid[s:s + step][None, :], -3.0e38)
         cs, ci = torch.topk(sc, min(TOP_K, sc.shape[1]), dim=1)
         alls = torch.cat([best_s, cs], 1)
         alli = torch.cat([best_i, ci + s], 1)
@@ -739,7 +762,9 @@ def main() -> int:
     launches = {fn.__name__: 0 for fn in ck.KERNELS}
     shape_launches = {}  # (kernel, D or W, k or 0, B) -> main-path launches
 
-    def run(label, fn, n_batches):
+    def main_path(fn):
+        """Drive a main path once: every count set to 0 just before, read
+        just after. Returns (its output, its launches by kernel, seconds)."""
         ck.reset_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -751,6 +776,10 @@ def main() -> int:
             launches[name] += n
         for key, n in ck.launches_by_shape.items():
             shape_launches[key] = shape_launches.get(key, 0) + n
+        return out, delta, dt
+
+    def run(label, fn, n_batches):
+        out, delta, dt = main_path(fn)
         shown = ", ".join(f"{k} {v}" for k, v in delta.items() if v)
         log(f"{label}: {dt / n_batches * 1e3:.1f} ms/batch, {n_batches * BATCH / dt:.1f} QPS; "
             f"launches {shown or 'none'}")
@@ -840,6 +869,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     krows += phase_memory_optimized(ck, run, launches, vecs, texts, queries, qtexts)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    krows += phase_serving(ck, main_path, vecs, texts, smi)
 
     # each row gets the main-path launches at its own shape
     row_keys = [row.pop("_key") for row in krows]
@@ -1381,6 +1413,377 @@ def phase_memory_optimized(ck, run, launches, vecs, texts, queries, qtexts):
     row = scan_rows(ck, "preset sketch S=512 k=360", bm._sketch, qind, eng.valid.clone(), kc)
     tmp.cleanup()
     return [row]
+
+
+# phase 7: the serving entry point (RadiantTPU + the HTTP server)
+INGEST_CHUNKS = 16_384
+SERVE_CLIENTS = 256
+SERVE_REQUESTS = 16  # /search requests per client in the timed load
+PROFILED_REQUESTS = 2  # per client in the profiled window
+SERVE_KC = 240  # both legs' stage 1: auto fused depth 60 x rescore multiplier 4.0
+SERVE_BUCKETS = (1, 4, 8, 16, 32, 64, 128, 256)  # what the coalescer and warmup reach
+CALIBRATION_BUCKETS = (128, 256)  # calibration_probes 128, doubled once when unstable
+
+
+def serving_rows(ck, eng, bm, qdev, qtexts_):
+    """Kernel rows at every (k, B) phase 7 launches: both legs' scans at
+    kc = 240 for each query bucket the coalescer and warmup reach and the
+    batch API's 2048 (the sketch row at 2048 is phase 3's), and the
+    calibration probes' binary stage 1 at 128 and 256. Inputs: phase 7's
+    store, its BM25 sketch, and a batch of bench queries embedded on the
+    card (quantized, or packed to sign words, as the path does)."""
+    import torch
+
+    from radiant_rag_tpu_torch.ops import quantize as qz
+    from radiant_rag_tpu_torch.ops.similarity import quantize_queries
+
+    qi, _ = quantize_queries(qdev, qz.int8_scale_offset(eng.i8_lo, eng.i8_hi)[0])
+    bm.ensure_sketch(eng.capacity)  # the sketch route's tables, as search_rows builds them
+    qind = torch.from_numpy(bm.make_query_indicator(qtexts_, bm.query_tids(qtexts_))).cuda()
+    qwords = qz.pack_binary(qdev)
+    mask = eng.valid.clone()
+    rows = []
+    for b in SERVE_BUCKETS + (BATCH,):
+        rows.append(scan_rows(ck, f"dense D={DIM} k={SERVE_KC} B={b} (serving)", eng.i8,
+                              qi[:b].contiguous(), mask, SERVE_KC))
+        if b != BATCH:
+            rows.append(scan_rows(ck, f"sketch S={bm.sketch_dim} k={SERVE_KC} B={b} (serving)",
+                                  bm._sketch, qind[:b].contiguous(), mask, SERVE_KC))
+    csign = ck.sign_matrix(eng.codes)
+    for b in CALIBRATION_BUCKETS:
+        rows.append(hamming_scan_row(ck, f"W={eng.codes.shape[1]} B={b} k={SERVE_KC} "
+                                     "(calibration probes)", eng.codes,
+                                     qwords[:b].contiguous(), mask, SERVE_KC, csign))
+    return rows
+
+
+def phase_serving(ck, main_path, vecs, texts, smi):
+    """Phase 7: the serving entry point at MiniLM-L12 width over the bench
+    corpus plus 16,384 ingested chunks: `RadiantTPU` over a `TpuVectorStore`
+    (default preset, precision both), the fusion calibration its first
+    search runs, `warmup`, then `make_server` on 127.0.0.1 under 256
+    concurrent keep-alive clients through the coalescer, and the batch API
+    at 2048 queries. Returns its kernel rows."""
+    import http.client
+    import threading
+
+    import torch
+
+    from radiant_rag_tpu_torch.app import RadiantTPU
+    from radiant_rag_tpu_torch.config import config_from_dict
+    from radiant_rag_tpu_torch.index.factory import create_vector_store
+    from radiant_rag_tpu_torch.index.hybrid import embed_queries_device, resolve_fused_depth
+    from radiant_rag_tpu_torch.ingestion.processor import IngestedChunk
+    from radiant_rag_tpu_torch.models.registry import LocalNLPModels
+    from radiant_rag_tpu_torch.server import hit_dicts, make_server
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_serve_")
+    d = Path(tmp.name)
+    cfg = config_from_dict({
+        "embedding": {**MINILM_PRESET["embedding"], "checkpoint_dir": str(d / "embedder_ckpt")},
+        # a 1M-row save after each ingest is I/O the CPU tests cover at small size
+        "index": {"data_dir": str(d / "index"), "auto_persist": False},
+        "bm25": {"index_path": str(d / "bm25.json.gz")}})
+    r, q, srv = cfg.retrieval, cfg.quantization, cfg.server
+    check((cfg.index.dim, q.precision, q.rescore_multiplier, r.fusion_weighting,
+           resolve_fused_depth(r), srv.max_batch, srv.pipeline_depth, srv.coalesce)
+          == (DIM, "both", 4.0, "auto", 60, 256, 2, True), cfg)
+    check(round(resolve_fused_depth(r) * q.rescore_multiplier) == SERVE_KC)
+    log(f"phase 7 config: default preset, embedding preset none (MiniLM-L12 width), data "
+        f"under {d}; index.auto_persist: {cfg.index.auto_persist}; fusion_weighting "
+        f"{r.fusion_weighting}, calibration probes {r.calibration_probes} x seeds "
+        f"{r.calibration_seeds}; server max_batch {srv.max_batch}, max_wait_ms "
+        f"{srv.max_wait_ms}, pipeline_depth {srv.pipeline_depth}, request_workers "
+        f"{srv.request_workers}")
+
+    t0 = time.perf_counter()
+    store = create_vector_store(cfg)
+    store.reserve(N_DOCS + INGEST_CHUNKS)
+    for s in range(0, N_DOCS, UPSERT_BATCH):
+        e = min(N_DOCS, s + UPSERT_BATCH)
+        store.upsert_batch([(texts[i], {"source": f"bench/doc{i}"}, vecs[i])
+                            for i in range(s, e)])
+    torch.cuda.synchronize()
+    t_upsert = time.perf_counter() - t0
+    eng = store.engine
+    check(type(store).__name__ == "TpuVectorStore" and store.count_documents() == N_DOCS
+          and store.default_search_mode == "int8" and eng.store_fp32, "phase 7 store")
+    t0 = time.perf_counter()
+    models = LocalNLPModels(cfg)
+    t_models = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # its orchestrator resolves the BM25 index, which builds from the store
+    app = RadiantTPU(cfg, store=store, local_models=models)
+    torch.cuda.synchronize()
+    t_bm = time.perf_counter() - t0
+    n_bm = app.bm25_index.get_stats()["num_docs"]
+    check(n_bm == N_DOCS, n_bm)
+    log(f"phase 7 store: upsert {N_DOCS} docs in {t_upsert:.1f} s ({N_DOCS / t_upsert:.0f} "
+        f"docs/s); models {t_models:.1f} s; RadiantTPU with its PersistentBM25Index built "
+        f"from the store {t_bm:.1f} s")
+
+    crng = np.random.default_rng(SEED + 8)
+    chunks = [IngestedChunk(" ".join(f"w{t}" for t in row), {"source": f"ingest/chunk{i}"})
+              for i, row in enumerate(crng.zipf(1.3, size=(INGEST_CHUNKS, 48)) % 30_000)]
+    stats, d_ing, t_ing = main_path(lambda: app.ingest_chunks(chunks))
+    check((stats["chunks_ingested"], stats["parents"], stats["bm25_added"], stats["bm25_removed"])
+          == (INGEST_CHUNKS, INGEST_CHUNKS, INGEST_CHUNKS, 0), stats)
+    n_rows = N_DOCS + INGEST_CHUNKS
+    check(store.count_documents() == N_DOCS + 2 * INGEST_CHUNKS and eng.count == n_rows
+          and eng.capacity >= n_rows, (store.count_documents(), eng.count, eng.capacity))
+    log(f"phase 7 ingest_chunks: {INGEST_CHUNKS} chunks (hierarchical: {stats['parents']} "
+        f"parents, {stats['chunks_ingested']} leaves embedded on the card) in {t_ing:.1f} s, "
+        f"{INGEST_CHUNKS / t_ing:.0f} chunks/s; corpus {eng.count} rows, capacity {eng.capacity}")
+
+    # the BM25 device tables that the ingest's adds left stale (delta
+    # postings, sketch, doc-major), rebuilt here as the next search would
+    bm = app.bm25_index.index
+    t0 = time.perf_counter()
+    bm._finalize_csr()
+    bm.ensure_sketch(eng.capacity)
+    bm.ensure_doc_major(eng.capacity)
+    bm._device_doc_lens(eng.capacity)
+    torch.cuda.synchronize()
+    t_tables = time.perf_counter() - t0
+    log(f"phase 7 BM25 device tables after the ingest (CSR merge, sketch, doc-major, doc "
+        f"lengths): {t_tables:.1f} s")
+
+    # query texts: bench-style 6-word prefixes of corpus texts, each used once
+    qrng = np.random.default_rng(SEED + 9)
+    pool = list(dict.fromkeys(" ".join(texts[i].split()[:6])
+                              for i in qrng.integers(0, N_DOCS, 12_000)))
+    n_load = SERVE_CLIENTS * SERVE_REQUESTS
+    n_prof = SERVE_CLIENTS * PROFILED_REQUESTS
+    first_q, pool = pool[:8], pool[8:]
+    load_q, prof_q = pool[:n_load], pool[n_load:n_load + n_prof]
+    api_q = pool[n_load + n_prof:n_load + n_prof + 2 * BATCH]
+    check(len(api_q) == 2 * BATCH, "too few distinct query texts")
+
+    # the first search runs the fusion calibration (fusion_weighting auto)
+    orch = app.orchestrator
+    hy = orch._hybrid
+    check(hy is not None and hy.needs_calibration() and hy.default_fused_depth == 60)
+    cal_s = []
+    ensure = orch._ensure_fusion_calibration
+
+    def timed_ensure():
+        t = time.perf_counter()
+        ensure()
+        torch.cuda.synchronize()
+        cal_s.append(time.perf_counter() - t)
+
+    orch._ensure_fusion_calibration = timed_ensure
+    first, d_cal, t_first = main_path(lambda: app.search_batch(first_q, use_cache=False))
+    del orch._ensure_fusion_calibration
+    cal = hy.last_calibration
+    check(cal is not None and "skipped" not in cal and not hy.needs_calibration(),
+          f"calibration skipped: {cal}")
+    check(hy.fusion_mode == cal["fusion_mode"]
+          and np.array_equal(hy.leg_weights, np.asarray(cal["weights"], np.float32)),
+          "the served fusion is not the calibrated one")
+    check(d_cal["hamming_scan_topk"] > 0 and all(first), d_cal)
+    log(f"phase 7 calibration (inside the first search_batch of {len(first_q)}, "
+        f"{t_first:.2f} s): {cal_s[0]:.2f} s; " + json.dumps(
+            {k: cal[k] for k in ("fusion_mode", "weights", "dense_mrr", "bm25_mrr",
+                                 "select_mrr", "confirm_mrr", "n_probes", "n_probes_final",
+                                 "n_seeds", "seed_configs", "confidence_weights")})
+        + f"; launches {d_cal}")
+
+    timings, d_warm, t_warm = main_path(lambda: app.warmup(max_batch=srv.max_batch))
+    check(set(timings) == {f"hybrid/b{b}" for b in SERVE_BUCKETS}, timings)
+    log(f"phase 7 warmup(max_batch={srv.max_batch}): {t_warm:.1f} s, {json.dumps(timings)}")
+
+    server = make_server(app, "127.0.0.1", 0)
+    port = server.server_address[1]
+    serve_thread = threading.Thread(target=server.serve_forever, daemon=True)
+    serve_thread.start()
+    coal = server.api._coalescer
+    check(coal is not None and coal.max_batch == 256 and coal.pipeline_depth == 2
+          and coal.run_batch_async is not None, "coalescer settings")
+    # instrument the coalescer: when each query was submitted, and each
+    # dispatched batch (its time and its queries)
+    t_submit, dispatched = {}, []
+    submit0, dispatch0 = coal.submit, coal.run_batch_async
+
+    def submit(key, item, timeout=None):
+        t_submit[item] = time.perf_counter()
+        return submit0(key, item, timeout=timeout)
+
+    def dispatch(key, items):
+        dispatched.append((time.perf_counter(), list(items)))
+        return dispatch0(key, items)
+
+    coal.submit, coal.run_batch_async = submit, dispatch
+
+    def http_json(conn, method, path, body=None):
+        conn.request(method, path, json.dumps(body) if body is not None else None,
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+
+    def load(queries_, per_client):
+        """SERVE_CLIENTS keep-alive clients, each sending its share of
+        queries_ one /search at a time; returns ({query: (status, body)},
+        client-side seconds per request, wall seconds after all connected)."""
+        results, lat, errors = {}, [], []
+        barrier = threading.Barrier(SERVE_CLIENTS + 1)
+
+        def client(qs):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            try:
+                conn.connect()
+                barrier.wait(timeout=300)
+                for q_ in qs:
+                    t = time.perf_counter()
+                    status, raw = http_json(conn, "POST", "/search",
+                                            {"query": q_, "mode": "hybrid", "top_k": TOP_K})
+                    lat.append(time.perf_counter() - t)
+                    results[q_] = (status, json.loads(raw))
+            except Exception as exc:  # reported by the caller
+                errors.append(exc)
+                barrier.abort()
+            finally:
+                conn.close()
+
+        threads = [threading.Thread(target=client, daemon=True,
+                                    args=(queries_[i * per_client:(i + 1) * per_client],))
+                   for i in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        barrier.wait(timeout=300)
+        t0_ = time.perf_counter()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0_
+        check(not any(t.is_alive() for t in threads), "a client hung")
+        check(not errors, f"client errors: {errors[:3]}")
+        return results, lat, wall
+
+    (results, lat, wall), d_load, _ = main_path(lambda: load(load_q, SERVE_REQUESTS))
+    n_batches_load = len(dispatched)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    status, raw = http_json(conn, "GET", "/stats")
+    check(status == 200, status)
+    sstats = json.loads(raw)
+    serving, lat_srv = sstats["serving"], sstats["search_latency_ms"]
+    waits = sorted(t_d - t_submit[q_] for t_d, items in dispatched for q_ in items)
+    sizes = [len(items) for _, items in dispatched]
+    lat_c = sorted(lat)
+    log(f"phase 7 server load: {SERVE_CLIENTS} clients x {SERVE_REQUESTS} /search (hybrid, "
+        f"top_k {TOP_K}): {n_load} requests in {wall:.2f} s = {n_load / wall:.1f} requests/s; "
+        f"/stats latency p50 {lat_srv['p50']} ms, p90 {lat_srv['p90']} ms, p99 "
+        f"{lat_srv['p99']} ms; client-side p50 {lat_c[len(lat_c) // 2] * 1e3:.1f} ms, p99 "
+        f"{lat_c[int(0.99 * len(lat_c))] * 1e3:.1f} ms; coalescer {json.dumps(serving)}; "
+        f"{n_batches_load} batches, mean size {np.mean(sizes):.1f}, sizes "
+        f"{json.dumps(np.bincount(np.asarray(sizes), minlength=1).nonzero()[0].tolist()[:40])};"
+        f" coalescer wait (submit -> dispatch) p50 {waits[len(waits) // 2] * 1e3:.2f} ms, p99 "
+        f"{waits[int(0.99 * len(waits))] * 1e3:.2f} ms; launches {d_load}")
+    check(serving["max_batch"] > 1, "the coalescer formed no batch larger than 1")
+    check(serving["pipelined"] > 0, "no batch took the pipelined seam")
+    check(d_load["int8_scan_topk"] > 0, d_load)
+
+    # every response against search_batch of the same queries, in the batch
+    # each was served in (same bucket, same kernels): doc ids and scores equal
+    bad = 0
+    for _t, items in dispatched:
+        ref = app.search_batch(items, use_cache=False)
+        for q_, hits in zip(items, ref):
+            status, body = results[q_]
+            got = [(h["doc_id"], h["score"]) for h in body["hits"]]
+            bad += status != 200 or got != [(d_.doc_id, s_) for d_, s_ in hits] or not got
+    check(bad == 0, f"{bad} of {n_load} responses differ from search_batch of the same queries")
+    one = app.search_batch(load_q[:BATCH], use_cache=False)
+    moved = sum([(h["doc_id"], h["score"]) for h in results[q_][1]["hits"]]
+                != [(d_.doc_id, s_) for d_, s_ in hits] for q_, hits in zip(load_q, one))
+    log(f"phase 7 responses: all {n_load} equal search_batch(use_cache=False) of their served "
+        f"batch; against one {BATCH}-query batch {moved} of {BATCH} differ (the batch's "
+        "composition)")
+
+    t_prof = []
+    idle, d_prof, _ = main_path(lambda: profile_batch(
+        lambda: t_prof.append(load(prof_q, PROFILED_REQUESTS)[2]),
+        f"phase 7: {SERVE_CLIENTS} clients x {PROFILED_REQUESTS} /search requests"))
+    log(f"phase 7 profiled window: {n_prof} requests in {t_prof[0]:.2f} s "
+        f"({n_prof / t_prof[0]:.1f} requests/s under the profiler), device idle share "
+        f"{'not measured' if idle is None else f'{idle:.3f}'}; launches {d_prof}")
+
+    api_ms = []
+    for part in (api_q[:BATCH], api_q[BATCH:]):  # the first also grows the allocator
+        (status, raw), d_api, dt = main_path(
+            lambda part=part: http_json(conn, "POST", "/search",
+                                        {"queries": part, "mode": "hybrid", "top_k": TOP_K}))
+        check(status == 200 and len(json.loads(raw)["hits_batch"]) == BATCH, status)
+        api_ms.append(dt * 1e3)
+    log(f"phase 7 batch API: POST /search with {BATCH} queries: {api_ms[1]:.1f} ms (first "
+        f"{api_ms[0]:.1f} ms), {len(raw) / 1e6:.1f} MB of JSON; launches {d_api}")
+
+    # one batch's split, each stage alone at the largest coalesced batch
+    qt = load_q[:srv.max_batch]
+    searcher = app._fused_searcher()
+    kw = dict(dense_k=TOP_K, bm25_k=TOP_K, fused_k=TOP_K, rrf_k=r.rrf_k,
+              mode=store._default_mode(), rescore_multiplier=q.rescore_multiplier,
+              fusion=r.fusion_weighting)
+
+    def host_ms(fn, n=3):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(out))
+
+    ms_embed = host_ms(lambda: embed_queries_device(models, eng, qt))
+    qdev = embed_queries_device(models, eng, qt)
+    ms_search = host_ms(lambda: searcher.search_rows(None, qt, _qdev=qdev, **kw))
+    res = searcher.search_rows(None, qt, _qdev=qdev, **kw)
+    ms_hydrate = host_ms(lambda: app._resolve_fused_rows(res, len(qt)))
+    hits = app._resolve_fused_rows(res, len(qt))
+    ms_json = host_ms(lambda: [json.dumps({"hits": hit_dicts(h)}, default=str) for h in hits])
+    res2k = searcher.search_rows(None, api_q[:BATCH], **kw,
+                                 _qdev=embed_queries_device(models, eng, api_q[:BATCH]))
+    ms_hydrate_2k = host_ms(lambda: app._resolve_fused_rows(res2k, BATCH), n=1)
+    split = {"coalescer_wait_p50": waits[len(waits) // 2] * 1e3,
+             "embed_queries_device": ms_embed, "search_rows_qdev": ms_search,
+             "resolve_fused_rows": ms_hydrate, "json_encoding": ms_json}
+    log(f"phase 7 one batch of {len(qt)}, each stage alone (ms): {json.dumps(split)}; "
+        f"_resolve_fused_rows at B={BATCH}: {ms_hydrate_2k:.1f} ms")
+
+    # the hybrid's dense leg against exact fp32 search of the same embeddings
+    qt2k = load_q[:BATCH]
+    qdev2k = embed_queries_device(models, eng, qt2k)
+    check(qdev2k is not None and tuple(qdev2k.shape) == (BATCH, DIM), "no device queries")
+    dense = searcher.search_rows(None, qt2k, _qdev=qdev2k, **kw)["dense"][1]
+    recall = recall_at_10(dense, exact_top10(eng.vecs[:eng.count], qdev2k.cpu().numpy(),
+                                             eng.valid[:eng.count]))
+    log(f"phase 7 dense leg recall@10 vs exact fp32 over {eng.count} rows: {recall:.4f}")
+    check(recall >= 0.9, f"phase 7 dense recall@10 {recall}")
+
+    status, raw = http_json(conn, "GET", "/health")
+    health = json.loads(raw)
+    check(status == 200 and health["ok"], f"/health {status} {health}")
+    conn.close()
+    server.shutdown()
+    server.server_close()
+    server.api.close()
+    serve_thread.join(timeout=30)
+    check(not serve_thread.is_alive(), "the server thread did not stop")
+
+    rows = serving_rows(ck, eng, bm, qdev2k, qt2k)
+    log("phase 7 summary: " + json.dumps({
+        "device": smi, "corpus_rows": eng.count, "upsert_s": t_upsert, "models_s": t_models,
+        "app_with_bm25_build_s": t_bm, "ingest_s": t_ing, "bm25_tables_after_ingest_s": t_tables, "ingest_chunks_per_s": INGEST_CHUNKS / t_ing,
+        "calibration_s": cal_s[0], "calibration": {k: cal[k] for k in (
+            "fusion_mode", "weights", "dense_mrr", "bm25_mrr", "n_probes", "n_probes_final")},
+        "warmup_s": t_warm, "clients": SERVE_CLIENTS, "requests": n_load,
+        "requests_per_s": n_load / wall, "p50_ms": lat_srv["p50"], "p99_ms": lat_srv["p99"],
+        "coalescer": serving, "batches": n_batches_load, "mean_batch": float(np.mean(sizes)),
+        "profiled_window_s": t_prof[0], "idle_share": idle, "batch_api_ms": api_ms[1], "split_ms": split,
+        "resolve_fused_rows_2048_ms": ms_hydrate_2k, "dense_recall_at_10": recall}))
+    del app, store, models, searcher, res, res2k, qdev, qdev2k
+    tmp.cleanup()
+    return rows
 
 
 if __name__ == "__main__":

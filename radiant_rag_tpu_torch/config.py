@@ -1,22 +1,28 @@
 """Configuration of the ported slices: the sections they read.
 
 The port's own copy of `IndexConfig`, `QuantizationConfig`, `BM25Config`,
-`RetrievalConfig`, `EmbeddingConfig`, `CrossEncoderConfig` and `CacheConfig`
-from `radiant_rag_tpu/config.py`, with the same fields, defaults, coercion
-of YAML values and validation, so a YAML file gives the two packages equal
-sections. `AppConfig` holds just these seven. The `rerank` section is not
+`RetrievalConfig`, `EmbeddingConfig`, `CrossEncoderConfig`, `CacheConfig`,
+`IngestionConfig`, `LoggingConfig`, `MetricsConfig` and `ServerConfig` from
+`radiant_rag_tpu/config.py`, with the same fields, defaults, coercion of
+YAML values and validation, so a YAML file gives the two packages equal
+sections. `AppConfig` holds just these eleven. The `rerank` section is not
 read until its only reader, the rerank agent, is ported (ROADMAP queue A
 item 11).
 
-Three deviations from the JAX package's `load_config`:
+Values resolve as in the JAX package: environment > file > defaults. An
+environment variable `RADIANT_<SECTION>_<FIELD>` (upper case, e.g.
+`RADIANT_INDEX_DATA_DIR`) overrides that field of the file's section, and
+counts as set by the user for the embedding preset below. A machine
+without PyYAML configures the port through these and `config_from_dict`.
+
+Two deviations from the JAX package's `load_config`:
   * it raises when the file is missing, PyYAML is missing or the file does
     not parse; the JAX package warns and serves the defaults, which would
     silently run another configuration;
   * for the same reason a field the port parses but has no behaviour for
     (`_NOT_PORTED`) raises `NotImplementedError` on any value but its
     default, naming the ROADMAP item that brings it, or saying that neither
-    package reads it;
-  * it reads no `RADIANT_*` environment overrides yet (ROADMAP).
+    package reads it.
 
 The embedding preset is resolved as the JAX package's `load_config` does
 (`_apply_embedding_preset`): "auto" means "trainable-small" for a weightless
@@ -29,6 +35,7 @@ to the shape of the shipped 128 x 6 artifacts, and `index.dim` follows
 from __future__ import annotations
 
 import logging
+import os
 from dataclasses import dataclass, field, fields, replace
 from typing import Any, Dict, Optional
 
@@ -167,6 +174,56 @@ class CacheConfig:
 
 
 @dataclass(frozen=True)
+class IngestionConfig:
+    """Chunking / ingest."""
+
+    child_chunk_size: int = 512
+    chunk_overlap: int = 50
+    max_parent_chars: int = 50000
+    embed_batch_size: int = 32
+    # >= embedding.batch_size so each ingest embed call can fill the
+    # embedder's batch
+    upsert_batch_size: int = 2048
+    hierarchical: bool = True
+    use_intelligent_chunking: bool = False
+    translate_at_ingestion: bool = False
+    pdf_strategy: str = "auto"  # auto | fast | hi_res | ocr_only
+
+
+@dataclass(frozen=True)
+class MetricsConfig:
+    prometheus_enabled: bool = False
+    prometheus_port: int = 9090
+    otel_enabled: bool = False
+    otel_endpoint: str = ""
+
+
+@dataclass(frozen=True)
+class LoggingConfig:
+    level: str = "INFO"
+    file: str = ""
+    color: bool = True
+
+
+@dataclass(frozen=True)
+class ServerConfig:
+    """HTTP serving: concurrent /search requests arriving within
+    `max_wait_ms` of each other are merged into one batch (`server.py`)."""
+
+    host: str = "0.0.0.0"
+    port: int = 8080
+    coalesce: bool = True
+    max_batch: int = 256  # peak queries folded into one batch
+    max_wait_ms: float = 4.0
+    # batches in flight in the coalescer (one batch's device->host fetch
+    # overlaps the next batch's dispatch); 1 = sequential
+    pipeline_depth: int = 2
+    # requests allowed at once inside the HTTP host sections (JSON parse,
+    # serialize + write); waiting in the coalescer holds no slot; 0 = no gate
+    request_workers: int = 8
+
+
+@dataclass(frozen=True)
 class AppConfig:
     """The sections the ported slices read."""
 
@@ -177,15 +234,23 @@ class AppConfig:
     embedding: EmbeddingConfig = field(default_factory=EmbeddingConfig)
     cross_encoder: CrossEncoderConfig = field(default_factory=CrossEncoderConfig)
     cache: CacheConfig = field(default_factory=CacheConfig)
+    ingestion: IngestionConfig = field(default_factory=IngestionConfig)
+    metrics: MetricsConfig = field(default_factory=MetricsConfig)
+    logging: LoggingConfig = field(default_factory=LoggingConfig)
+    server: ServerConfig = field(default_factory=ServerConfig)
 
 
 _SECTIONS = {"index": IndexConfig, "quantization": QuantizationConfig, "bm25": BM25Config,
              "retrieval": RetrievalConfig, "embedding": EmbeddingConfig,
-             "cross_encoder": CrossEncoderConfig, "cache": CacheConfig}
+             "cross_encoder": CrossEncoderConfig, "cache": CacheConfig,
+             "ingestion": IngestionConfig, "metrics": MetricsConfig, "logging": LoggingConfig,
+             "server": ServerConfig}
+ENV_PREFIX = "RADIANT"
 _NEITHER = "read by neither package"
 _GRAPH = "the graph engine, ROADMAP queue A item 10"
-_APP = "read by the app and agent layers, ROADMAP queue A item 11"
-_CALIBRATE = "HybridSearcher.calibrate_fusion, ROADMAP queue A item 7"
+_APP = "read only by the agents, ROADMAP queue A item 11"
+_EXPORTER = ("the metrics exporter (utils/metrics_export.py) is not ported yet, "
+             "ROADMAP queue A item 11")
 _REMOTE = ("only the non-jax backends read it; they come with the host layers, "
            "ROADMAP queue A item 11")
 # Fields parsed for parity that the port has no behaviour for: a value
@@ -196,13 +261,15 @@ _NOT_PORTED = {
               "graph_degree": _GRAPH, "graph_ef_construction": _GRAPH,
               "docstore_cache_docs": "the spill docstore, ROADMAP queue A item 10"},
     "quantization": {"int8_on_disk_only": _NEITHER},
-    "retrieval": {"search_scope": _APP, "retrieval_mode": _APP, "fusion_weighting": _APP,
-                  "calibration_probes": _CALIBRATE,
-                  "calibration_paraphrase_fraction": _CALIBRATE,
-                  "calibration_seeds": _CALIBRATE},
+    "retrieval": {"search_scope": _APP, "retrieval_mode": _APP},
     "embedding": {"backend": _REMOTE, "model_name": _REMOTE},
     "cross_encoder": {"backend": _REMOTE, "model_name": _NEITHER},
-    "cache": {"query_cache_size": _APP, "query_cache_ttl_s": _APP},
+    "ingestion": {"embed_batch_size": _NEITHER, "use_intelligent_chunking": _NEITHER,
+                  "translate_at_ingestion": _NEITHER},
+    "metrics": {"prometheus_enabled": _EXPORTER, "prometheus_port": _EXPORTER,
+                "otel_enabled": _EXPORTER, "otel_endpoint": _EXPORTER},
+    "server": {"host": _NEITHER + " (the serve command's --host)",
+               "port": _NEITHER + " (the serve command's --port)"},
 }
 # the JAX package's "trainable-small" preset: the shape of the shipped
 # 128 x 6 bi-encoder and cross-encoder artifacts
@@ -222,9 +289,16 @@ def _coerce(value: Any, ftype: type) -> Any:
 
 
 def _section(cls: type, data: Dict[str, Any], name: str) -> Any:
+    """One section: its environment overrides, else the file's values,
+    else the defaults."""
     types = {"bool": bool, "int": int, "float": float, "str": str}
-    kwargs = {f.name: _coerce(data[f.name], types[f.type])
-              for f in fields(cls) if f.name in data}
+    kwargs = {}
+    for f in fields(cls):
+        env_key = f"{ENV_PREFIX}_{name}_{f.name}".upper()
+        if env_key in os.environ:
+            kwargs[f.name] = _coerce(os.environ[env_key], types[f.type])
+        elif f.name in data:
+            kwargs[f.name] = _coerce(data[f.name], types[f.type])
     unknown = set(data) - {f.name for f in fields(cls)}
     if unknown:
         logger.warning("config section %s: unknown keys ignored: %s", name, sorted(unknown))
@@ -249,8 +323,10 @@ def _apply_embedding_preset(sections: Dict[str, Any], data: Dict[str, Any]) -> N
         logger.warning("unknown embedding.preset %r ignored", preset)
         return
 
-    def explicit(name):
-        return set(data.get(name) or {})
+    def explicit(name):  # the fields the file or the environment sets
+        prefix = f"{ENV_PREFIX}_{name}_".upper()
+        return set(data.get(name) or {}) | {k[len(prefix):].lower() for k in os.environ
+                                            if k.startswith(prefix)}
 
     sections["embedding"] = replace(emb, **{k: v for k, v in _TRAINABLE_SMALL.items()
                                             if k not in explicit("embedding")})
@@ -264,8 +340,9 @@ def _apply_embedding_preset(sections: Dict[str, Any], data: Dict[str, Any]) -> N
 
 def config_from_dict(data: Optional[Dict[str, Any]]) -> AppConfig:
     """AppConfig from a parsed YAML document: defaults, then the file's
-    values, then the embedding preset (module doc). Sections the port does
-    not read yet (`rerank`, `llm`, ...) are ignored."""
+    values, then the `RADIANT_<SECTION>_<FIELD>` environment overrides, then
+    the embedding preset (module doc). Sections the port does not read yet
+    (`rerank`, `llm`, ...) are ignored."""
     data = data or {}
     sections = {name: _section(cls, data.get(name) or {}, name)
                 for name, cls in _SECTIONS.items()}

@@ -23,7 +23,7 @@ in f32, on either route: the JAX blob carries no dense block for them.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,7 +35,10 @@ from radiant_rag_tpu_torch.ops import similarity as sim
 from radiant_rag_tpu_torch.ops.bm25 import (
     bm25_candidate_rescore, bm25_pages_scores, bm25_sketch_select,
 )
-from radiant_rag_tpu_torch.ops.fusion import rrf_fuse, score_fuse, weighted_rrf_fuse
+from radiant_rag_tpu_torch.ops.fusion import (
+    calibrated_leg_weights, rrf_fuse, score_fuse, weighted_rrf_fuse,
+)
+from radiant_rag_tpu_torch.parallel.data import make_paraphrase_query, make_pseudo_query
 
 Result = Dict[str, Tuple[np.ndarray, np.ndarray]]
 
@@ -100,6 +103,8 @@ class HybridSearcher:
         self.fusion_mode = "confidence"
         # candidate-pool depth for search_rows(fused_depth=None); 0 = off
         self.default_fused_depth = 0
+        self._calibrated_at = -1  # engine.count when last calibrated
+        self.last_calibration = None
 
     def max_query_bucket(self) -> int:
         """The engine gate in score mode (the BM25 pages route builds a
@@ -109,6 +114,264 @@ class HybridSearcher:
         return eng.max_query_bucket(
             extra_resident=self.bm25.device_bytes_projected(eng.capacity),
             score_gated=True)
+
+    def rebind_bm25(self, bm25: BM25Index) -> None:
+        """Point at a replacement BM25 index (load/rebuild swaps the object).
+
+        A swap of the SAME corpus's index keeps calibration (leg quality
+        unchanged); callers replacing analyzers/content should follow with
+        invalidate_calibration()."""
+        self.bm25 = bm25
+
+    def calibrate_fusion(self, embed_fn, texts_of_rows, n_probes: int = 128,
+                         seed: int = 0, top_k: int = 10,
+                         paraphrase_fraction: float = 0.5,
+                         seeds: int = 1, max_probes: int = 512) -> np.ndarray:
+        """Unsupervised fusion-config selection, step for step the JAX
+        package's (`radiant_rag_tpu/index/hybrid.py`, whose docstring gives
+        the reasons): the same probes, splits, candidates and tie rules
+        select the same mode and weights from the same rows.
+
+        Probes: indexed rows in `bm25.doc_lens` insertion order, shuffled by
+        numpy's `default_rng(seed)`, each made into an ICT span or (with
+        probability `paraphrase_fraction`) a synonym paraphrase of its text
+        (`parallel/data.py`). Each leg's self-retrieval MRR sets the
+        calibrated RRF weights (`ops/fusion.calibrated_leg_weights`). The
+        probes split into select (even) and confirm (odd) halves: calibrated
+        RRF and a score-interpolation weight grid are scored on the select
+        half, the grid is refined by +-0.05 / +-0.10 around its best, and
+        the confirm half decides among the top three. `seeds` draws re-run
+        that; if their winners disagree the probe count doubles (at most
+        `max_probes`, one retry). The final config comes from the stats
+        pooled over the draws: the near-tie set within eps 0.02 of the best
+        select MRR, its median score weight, a confirm-MRR override only by
+        more than 0.03, and calibrated RRF whenever the dense leg's MRR is
+        below a quarter of BM25's.
+
+        The probes' `search_rows` calls take the host-query form (their
+        embeddings come from `embed_fn` on the host), so on the sketch
+        route their queries are rounded through fp16 like any host query.
+
+        embed_fn: texts -> (B, D) L2-normalized embeddings (the query path's
+        own embedder). texts_of_rows: row -> doc text (None to skip rows).
+        """
+        rows = [r for r in self.bm25.doc_lens.keys()]
+        if not rows:
+            return self.leg_weights
+
+        runs = []
+        n = n_probes
+        for attempt in range(2):
+            runs = [self._calibrate_once(embed_fn, texts_of_rows, n,
+                                         seed + i, top_k,
+                                         paraphrase_fraction)
+                    for i in range(max(1, seeds))]
+            if any(r.get("skipped") for r in runs):
+                # tiny corpus: keep equal weights but mark calibrated so the
+                # next probe waits for the >20% growth trigger
+                self._calibrated_at = self.engine.count
+                self.last_calibration = runs[0]
+                return self.leg_weights
+            modes = {r["fusion_mode"] for r in runs}
+            wspread = (max(r["weights"][0] for r in runs)
+                       - min(r["weights"][0] for r in runs))
+            if len(modes) == 1 and wspread <= 0.1:
+                break
+            if n >= max_probes:
+                break
+            n = min(n * 2, max_probes)  # unstable: re-draw with more probes
+
+        # pooled selection (see docstring): average each candidate's
+        # select/confirm MRR over the runs that evaluated it; candidates
+        # must appear in EVERY run to be eligible (the coarse grid + the
+        # confidence config always do; refine-stage keys may not).
+        pool: Dict[str, Dict[str, list]] = {}
+        for r in runs:
+            for key, sc in r["probe_fused_mrr"].items():
+                e = pool.setdefault(key, {"sel": [], "conf": []})
+                e["sel"].append(sc["select"])
+                e["conf"].append(sc["confirm"])
+        full = ({k: e for k, e in pool.items() if len(e["sel"]) == len(runs)}
+                or pool)
+        stats = {k: (float(np.mean(e["sel"])), float(np.mean(e["conf"])))
+                 for k, e in full.items()}
+        top_sel = max(s for s, _ in stats.values())
+        eps = 0.02
+        near = sorted(k for k, (s, _) in stats.items() if s >= top_sel - eps)
+        # leg-quality gate: a dense leg that cannot self-retrieve (probe MRR
+        # far below bm25's) cannot help score interpolation — any nonzero
+        # dense weight only perturbs bm25's correct head, and probe noise at
+        # these counts can still rank such a config inside the near-tie set.
+        # Confidence (calibrated RRF, which zeroes the weak leg) is the only
+        # safe ship there, and the gate makes that choice deterministic.
+        mrr_d_pooled = float(np.mean([r["dense_mrr"] for r in runs]))
+        mrr_b_pooled = float(np.mean([r["bm25_mrr"] for r in runs]))
+        score_ws = sorted(float(k.split("@")[1]) for k in near
+                          if k.startswith("score@"))
+        if mrr_d_pooled < 0.25 * mrr_b_pooled or not score_ws:
+            best_key = "confidence"  # gate: no override can re-admit a
+            # score config the leg quality rules out
+        else:
+            # median near-tie score weight: set membership is stable across
+            # probe draws where the argmax is not, and grid weights have
+            # reproducible identity (confidence's continuous cal_w does not)
+            best_key = f"score@{score_ws[len(score_ws) // 2]:.2f}"
+            # pooled-confirm override: must win by a margin ABOVE the probe
+            # noise floor (confirm-MRR se ~0.02-0.03 at these probe counts;
+            # 0.01 measurably let noise flip the mode across seeds)
+            for k in near:
+                if stats[k][1] > stats[best_key][1] + 0.03:
+                    best_key = k
+        if best_key == "confidence":
+            final_mode = "confidence"
+            final_w = np.asarray(
+                np.median([r["confidence_weights"] for r in runs], axis=0),
+                np.float32)
+        else:
+            final_mode = "score"
+            wd = float(best_key.split("@")[1])
+            final_w = np.asarray([wd, 1.0 - wd], np.float32)
+
+        self.fusion_mode, self.leg_weights = final_mode, final_w
+        self._calibrated_at = self.engine.count
+        self.last_calibration = {
+            **runs[0],
+            "fusion_mode": final_mode,
+            "weights": final_w.tolist(),
+            "select_mrr": round(stats[best_key][0], 4),
+            "confirm_mrr": round(stats[best_key][1], 4),
+            "n_seeds": len(runs),
+            "n_probes_final": n,
+            "seed_configs": [
+                {"mode": r["fusion_mode"], "w_dense": round(r["weights"][0], 3)}
+                for r in runs],
+            # near set plus the shipped key: the leg-quality gate can force
+            # "confidence" even when it is outside the select near-tie set
+            "pooled_near_ties": {k: {"select": round(stats[k][0], 4),
+                                     "confirm": round(stats[k][1], 4)}
+                                 for k in sorted(set(near) | {best_key})},
+        }
+        return self.leg_weights
+
+    def _calibrate_once(self, embed_fn, texts_of_rows, n_probes: int,
+                        seed: int, top_k: int,
+                        paraphrase_fraction: float) -> dict:
+        """One probe draw -> selected fusion config (see calibrate_fusion)."""
+        rng = np.random.default_rng(seed)
+        rows = [r for r in self.bm25.doc_lens.keys()]
+        rng.shuffle(rows)
+        probes: List[Tuple[int, str]] = []
+        for r in rows:
+            text = texts_of_rows(r)
+            if text:
+                if rng.random() < paraphrase_fraction:
+                    q = make_paraphrase_query(text, rng, max_words=8)
+                else:
+                    q = make_pseudo_query(text, rng, max_words=8)
+                probes.append((r, q))
+            if len(probes) >= n_probes:
+                break
+        if len(probes) < 8:
+            return {"skipped": "corpus too small", "n_probes": len(probes),
+                    "weights": self.leg_weights.tolist()}
+        q_texts = [q for _, q in probes]
+        q_embs = np.asarray(embed_fn(q_texts), np.float32)
+        sel = np.arange(0, len(probes), 2)  # held-out split: even=select,
+        conf = np.arange(1, len(probes), 2)  # odd=confirm
+
+        def mrr(rows_out: np.ndarray, idxs) -> float:
+            rr = 0.0
+            for qi in idxs:
+                target = probes[qi][0]
+                hits = [int(r) for r in rows_out[qi] if r >= 0]
+                if target in hits:
+                    rr += 1.0 / (hits.index(target) + 1)
+            return rr / max(1, len(idxs))
+
+        res = self.search_rows(q_embs, q_texts, dense_k=top_k, bm25_k=top_k,
+                               fused_k=top_k, fusion="equal")
+        all_idx = range(len(probes))
+        mrr_d = mrr(res["dense"][1], all_idx)
+        mrr_b = mrr(res["bm25"][1], all_idx)
+        cal_w = np.asarray(calibrated_leg_weights([mrr_d, mrr_b]), np.float32)
+
+        evaluated: Dict[str, Tuple[str, np.ndarray, float, float]] = {}
+        saved_w, saved_mode = self.leg_weights, self.fusion_mode
+
+        def key_of(mode, w):
+            return mode if mode == "confidence" else f"score@{w[0]:.2f}"
+
+        def eval_candidate(mode, w):
+            k = key_of(mode, w)
+            if k in evaluated:
+                return evaluated[k]
+            self.leg_weights = w
+            out = self.search_rows(q_embs, q_texts, dense_k=top_k,
+                                   bm25_k=top_k, fused_k=top_k, fusion=mode)
+            rows_out = out["fused"][1]
+            evaluated[k] = (mode, w, mrr(rows_out, sel), mrr(rows_out, conf))
+            return evaluated[k]
+
+        try:
+            # stage 1: coarse grid on the select half
+            for mode, w in ([("confidence", cal_w)]
+                            + [("score", np.asarray([wd, 1.0 - wd], np.float32))
+                               for wd in (0.15, 0.3, 0.5, 0.7, 0.85)]):
+                eval_candidate(mode, w)
+            # stage 2: refine around the best score weight (select half)
+            score_best = max(
+                (c for c in evaluated.values() if c[0] == "score"),
+                key=lambda c: c[2], default=None)
+            if score_best is not None:
+                w0 = float(score_best[1][0])
+                for dw in (-0.1, -0.05, 0.05, 0.1):
+                    wd = round(min(0.95, max(0.05, w0 + dw)), 2)
+                    eval_candidate(
+                        "score", np.asarray([wd, 1.0 - wd], np.float32))
+        finally:
+            self.leg_weights, self.fusion_mode = saved_w, saved_mode
+
+        # final choice: top-3 by select MRR, argmax by CONFIRM MRR. eps tie
+        # prefers the earlier candidate — confidence-RRF first, then lower
+        # dense weight — for cross-seed stability.
+        ranked = sorted(evaluated.values(),
+                        key=lambda c: (-c[2], c[0] != "confidence", c[1][0]))
+        finalists = ranked[:3]
+        best = finalists[0]
+        for c in finalists[1:]:
+            if c[3] > best[3] + 0.005:
+                best = c
+        return {
+            "dense_mrr": round(mrr_d, 4), "bm25_mrr": round(mrr_b, 4),
+            "weights": [float(x) for x in best[1]],
+            "fusion_mode": best[0],
+            "confidence_weights": [float(x) for x in cal_w],
+            "probe_fused_mrr": {key_of(m, w): {"select": round(s, 4),
+                                               "confirm": round(c, 4)}
+                                for m, w, s, c in evaluated.values()},
+            "select_mrr": round(best[2], 4),
+            "confirm_mrr": round(best[3], 4),
+            "n_probes": len(probes),
+            "paraphrase_fraction": paraphrase_fraction,
+        }
+
+    def needs_calibration(self, growth: float = 0.2) -> bool:
+        """True until calibrated, and again after the corpus grows > 20%."""
+        if self._calibrated_at < 0:
+            return True
+        base = max(self._calibrated_at, 1)
+        return (self.engine.count - self._calibrated_at) > growth * base
+
+    def invalidate_calibration(self) -> None:
+        """Force re-calibration on the next query — the growth trigger only
+        couples to corpus size, so callers MUST invalidate when leg quality
+        changes out-of-band: retraining/hot-swapping the embedder (a freshly
+        trained dense leg would otherwise keep its random-init ~0 weight
+        until the corpus grew 20%), or rebuilding BM25 with new analyzers."""
+        self._calibrated_at = -1
+        self.leg_weights = np.asarray([0.5, 0.5], np.float32)
+        self.fusion_mode = "confidence"
+        self.last_calibration = None
 
     def search_rows(
         self,

@@ -366,3 +366,77 @@ def test_bf16_softmax_rounds_once_on_card(card):
     x[..., 100:] = -1e9
     assert torch.equal(torch.softmax(x, -1),
                        torch.softmax(x, -1, dtype=torch.float32).to(torch.bfloat16))
+
+
+def _card_app(tmp_path, n_docs=600):
+    """RadiantTPU with device=None (CUDA) over a small corpus, ingested as
+    chunks through the hierarchical path, calibrated by a first search."""
+    from radiant_rag_tpu_torch.app import RadiantTPU
+    from radiant_rag_tpu_torch.config import config_from_dict
+    from radiant_rag_tpu_torch.ingestion.processor import IngestedChunk
+
+    cfg = config_from_dict({
+        "index": {"dim": 64, "data_dir": str(tmp_path / "idx"), "auto_persist": False},
+        "embedding": {"preset": "none", "dim": 64, "num_layers": 2, "num_heads": 4,
+                      "hidden_dim": 128, "vocab_size": 2048, "max_seq_len": 64,
+                      "checkpoint_dir": ""},
+        "bm25": {"index_path": str(tmp_path / "bm25.json.gz"), "sketch_dim": 256},
+        "retrieval": {"calibration_probes": 64}})
+    app = RadiantTPU(cfg)
+    rng = np.random.default_rng(13)
+    texts = [" ".join(f"w{t}" for t in row) for row in rng.zipf(1.3, (n_docs, 30)) % 3000]
+    app.ingest_chunks([IngestedChunk(t, {"source": f"doc{i}"}) for i, t in enumerate(texts)])
+    queries = [" ".join(texts[i].split()[:5]) for i in rng.integers(0, n_docs, 64)]
+    app.search_batch(queries[:4], use_cache=False)  # calibrates
+    return app, queries
+
+
+def test_app_with_device_none_lives_on_the_card(card, tmp_path):
+    app, queries = _card_app(tmp_path)
+    assert app.device.type == "cuda"
+    assert app.store.engine.device.type == "cuda" and app.store.engine.vecs.is_cuda
+    bm = app.bm25_index.index
+    assert bm.device.type == "cuda" and bm._device_doc_lens(app.store.engine.capacity).is_cuda
+    assert app.local_models.device.type == "cuda"
+    assert all(p.is_cuda for p in app.local_models.embedder.model.parameters())
+    hy = app.orchestrator._hybrid
+    assert hy.last_calibration is not None and "skipped" not in hy.last_calibration
+    launches = ck.int8_scan_topk.launches
+    hits = app.search_batch(queries[:8], use_cache=False)
+    # the dense leg's scan, and the sketch leg's where the batch takes that route
+    assert ck.int8_scan_topk.launches > launches and all(hits)
+    assert app.check_health()["ok"]
+
+
+def test_search_batch_async_from_two_threads_equals_search_batch(card, tmp_path):
+    """Two threads dispatch through search_batch_async under one lock (as
+    the server's coalescer does) and resolve outside it, concurrently with
+    the other's dispatch: every batch equals search_batch of its queries."""
+    import threading
+
+    app, queries = _card_app(tmp_path)
+    ref = {i: app.search_batch(queries[8 * i:8 * i + 8], use_cache=False) for i in range(8)}
+    lock = threading.Lock()
+    got, errors = {}, []
+
+    def worker(parts):
+        try:
+            for i in parts:
+                with lock:
+                    complete = app.search_batch_async(queries[8 * i:8 * i + 8],
+                                                      use_cache=False)
+                assert complete.pipelined
+                got[i] = complete()
+        except Exception as exc:  # surfaced below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(range(k, 8, 2),)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    assert not errors, errors
+    for i in range(8):
+        assert [[(d.doc_id, s) for d, s in h] for h in got[i]] == \
+            [[(d.doc_id, s) for d, s in h] for h in ref[i]], i

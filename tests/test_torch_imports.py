@@ -23,7 +23,9 @@ assert not bad, bad
 new = {"config", "index.base", "index.doc", "index.docstore", "index.factory",
        "index.numpy_store", "index.store", "models", "models.bert", "models.cross_encoder",
        "models.device_rerank", "models.embedder", "models.hf_loading", "models.pretrained",
-       "models.registry", "models.tokenizer", "utils.cache"}
+       "models.registry", "models.tokenizer", "utils.cache", "app", "server", "orchestrator",
+       "__main__", "utils.batching", "utils.metrics", "utils.logging", "parallel.data",
+       "ingestion.processor", "ingestion.json_parser", "ingestion.code_chunker"}
 assert {"radiant_rag_tpu_torch." + m for m in new} <= set(names), names
 import torch
 assert not torch.cuda.is_available()
@@ -35,11 +37,13 @@ from radiant_rag_tpu_torch.index.store import TpuVectorStore
 from radiant_rag_tpu_torch.models.cross_encoder import CrossEncoder
 from radiant_rag_tpu_torch.models.embedder import Embedder
 from radiant_rag_tpu_torch.models.registry import LocalNLPModels
+from radiant_rag_tpu_torch.app import RadiantTPU
 for make in (lambda: DeviceVectorIndex(64), lambda: BM25Index(),
              lambda: DeviceVectorIndex(64, device="cuda"), lambda: TpuVectorStore(64),
              lambda: create_vector_store(config_from_dict({})),
              lambda: PersistentBM25Index(None), lambda: Embedder(), lambda: CrossEncoder(),
-             lambda: LocalNLPModels(), lambda: Embedder(device="cuda")):
+             lambda: LocalNLPModels(), lambda: Embedder(device="cuda"),
+             lambda: RadiantTPU(), lambda: RadiantTPU(config_from_dict({}), device="cuda")):
     try:
         make()
     except RuntimeError as exc:
@@ -145,10 +149,68 @@ def test_embedding_preset_resolves_every_field_as_jax_load_config(data, tmp_path
     ("embedding", "model_name", "bge-small", "queue A item 11"),
     ("cross_encoder", "backend", "llm", "queue A item 11"),
     ("cross_encoder", "model_name", "other", "neither package"),
-    ("cache", "query_cache_size", 10, "queue A item 11"),
+    ("metrics", "prometheus_enabled", "true", "queue A item 11"),
 ])
 def test_model_fields_without_a_behaviour_raise(section, key, value, reason):
     from radiant_rag_tpu_torch.config import config_from_dict
 
     with pytest.raises(NotImplementedError, match=reason):
         config_from_dict({section: {key: value}})
+
+
+@pytest.mark.parametrize("data,env", [
+    ({}, {}),
+    ({"server": {"max_batch": 8, "pipeline_depth": 1}, "logging": {"level": "DEBUG"}},
+     {"RADIANT_SERVER_MAX_BATCH": "64"}),
+    ({"index": {"auto_persist": True}},
+     {"RADIANT_INDEX_AUTO_PERSIST": "false", "RADIANT_INDEX_DATA_DIR": "/srv/idx",
+      "RADIANT_BM25_INDEX_PATH": "/srv/bm25.json.gz", "RADIANT_LOGGING_COLOR": "0"}),
+    ({"retrieval": {"fusion_weighting": "score"}},
+     {"RADIANT_RETRIEVAL_CALIBRATION_PARAPHRASE_FRACTION": "0.25",
+      "RADIANT_RETRIEVAL_CALIBRATION_SEEDS": "3", "RADIANT_CACHE_QUERY_CACHE_TTL_S": "5"}),
+    ({"embedding": {"max_seq_len": 128}},
+     {"RADIANT_EMBEDDING_DIM": "96", "RADIANT_INGESTION_CHILD_CHUNK_SIZE": "256",
+      "RADIANT_SERVER_REQUEST_WORKERS": "0", "RADIANT_SERVER_MAX_WAIT_MS": "1.5"}),
+    ({}, {"RADIANT_EMBEDDING_PRESET": "none", "RADIANT_INDEX_DIM": "384"}),
+])
+def test_sections_and_env_overrides_resolve_as_jax_load_config(data, env, tmp_path,
+                                                               monkeypatch):
+    """Every section the port reads, from the same YAML and the same
+    RADIANT_<SECTION>_<FIELD> environment (env > file > defaults), equals
+    the JAX package's load_config; an env field counts as set by the user
+    for the embedding preset."""
+    import dataclasses
+
+    yaml = pytest.importorskip("yaml")
+    from radiant_rag_tpu import config as jcfg
+    from radiant_rag_tpu_torch import config as tcfg
+
+    for key in list(os.environ):
+        if key.startswith("RADIANT_"):
+            monkeypatch.delenv(key)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(data))
+    ref, got = jcfg.load_config(str(path)), tcfg.config_from_dict(data)
+    for f in dataclasses.fields(got):
+        assert dataclasses.asdict(getattr(got, f.name)) == \
+            dataclasses.asdict(getattr(ref, f.name)), (f.name, data, env)
+
+
+def test_fields_this_slice_reads_no_longer_raise():
+    """fusion_weighting, the calibration_* fields and the query cache's are
+    read by the serving entry point now; the agents' fields still raise."""
+    from radiant_rag_tpu_torch.config import config_from_dict
+
+    cfg = config_from_dict({
+        "retrieval": {"fusion_weighting": "equal", "calibration_probes": 64,
+                      "calibration_paraphrase_fraction": 0.3, "calibration_seeds": 1},
+        "cache": {"query_cache_size": 10, "query_cache_ttl_s": 60}})
+    r = cfg.retrieval
+    assert (r.fusion_weighting, r.calibration_probes, r.calibration_paraphrase_fraction,
+            r.calibration_seeds) == ("equal", 64, 0.3, 1)
+    assert (cfg.cache.query_cache_size, cfg.cache.query_cache_ttl_s) == (10, 60.0)
+    for key, value in (("search_scope", "all"), ("retrieval_mode", "bm25")):
+        with pytest.raises(NotImplementedError, match="queue A item 11"):
+            config_from_dict({"retrieval": {key: value}})

@@ -299,7 +299,10 @@ def test_chip_smoke_preset_literal_is_the_shipped_file():
     ("index", "docstore_cache_docs", 10, "queue A item 10"),
     ("quantization", "int8_on_disk_only", "true", "neither package"),
     ("retrieval", "search_scope", "all", "queue A item 11"),
-    ("retrieval", "calibration_seeds", 3, "queue A item 7"),
+    ("retrieval", "retrieval_mode", "dense", "queue A item 11"),
+    ("ingestion", "use_intelligent_chunking", "true", "neither package"),
+    ("server", "port", 9000, "neither package"),
+    ("metrics", "otel_enabled", True, "queue A item 11"),
 ])
 def test_config_refuses_settings_the_port_has_no_behaviour_for(section, key, value, reason):
     """The JAX package accepts these; the port would run another

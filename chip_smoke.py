@@ -48,6 +48,19 @@ seed: 1M docs of clustered 384-d vectors and zipfian 48-token texts):
            request coalescer, a profiled window, the batch API at 2048
            queries, one batch's stage split and the dense leg's recall;
            every response is held against `search_batch` of its batch.
+  phase 8  the agentic query path over phase 7's app and server, with a
+           scripted mock LLM (`ScriptedLLM`: 8 effective queries a run,
+           multihop on every fourth question, one critic retry on every
+           other): 64 questions through `app.query` (default config; the
+           rerank auto-disable probes run in the first), 64 through a
+           second `RAGOrchestrator` with the rerank on every run (fused and
+           reranked docs held against direct `search_rows` / store / BM25
+           calls and `rerank.rerank`), 8 through one that compresses its
+           context, then 16 concurrent `/query` beside `/search` load, a
+           `/query/stream` and a two-turn conversation; per-run and
+           per-phase ms, the device stages' ms, the cross-encoder's
+           TFLOP/s, the idle share of 8 profiled runs, the launches by
+           shape, and kernel rows for the shapes it adds.
 
 Prints the card's name and power limit, the phases' numbers, one
 {"kernels": [...]} JSON line, and as its last line
@@ -871,7 +884,7 @@ def main() -> int:
     krows += phase_memory_optimized(ck, run, launches, vecs, texts, queries, qtexts)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    krows += phase_serving(ck, main_path, vecs, texts, smi)
+    krows += phase_serving(ck, main_path, vecs, texts, smi, {row["_key"] for row in krows})
 
     # each row gets the main-path launches at its own shape
     row_keys = [row.pop("_key") for row in krows]
@@ -1457,13 +1470,14 @@ def serving_rows(ck, eng, bm, qdev, qtexts_):
     return rows
 
 
-def phase_serving(ck, main_path, vecs, texts, smi):
+def phase_serving(ck, main_path, vecs, texts, smi, known_keys):
     """Phase 7: the serving entry point at MiniLM-L12 width over the bench
     corpus plus 16,384 ingested chunks: `RadiantTPU` over a `TpuVectorStore`
     (default preset, precision both), the fusion calibration its first
     search runs, `warmup`, then `make_server` on 127.0.0.1 under 256
     concurrent keep-alive clients through the coalescer, and the batch API
-    at 2048 queries. Returns its kernel rows."""
+    at 2048 queries; then phase 8 over the same app and server. Returns the
+    kernel rows of both phases' shapes that `known_keys` lacks."""
     import http.client
     import threading
 
@@ -1474,6 +1488,8 @@ def phase_serving(ck, main_path, vecs, texts, smi):
     from radiant_rag_tpu_torch.index.factory import create_vector_store
     from radiant_rag_tpu_torch.index.hybrid import embed_queries_device, resolve_fused_depth
     from radiant_rag_tpu_torch.ingestion.processor import IngestedChunk
+    from radiant_rag_tpu_torch.llm.backends import MockLLMBackend
+    from radiant_rag_tpu_torch.llm.client import LLMClient
     from radiant_rag_tpu_torch.models.registry import LocalNLPModels
     from radiant_rag_tpu_torch.server import hit_dicts, make_server
 
@@ -1483,7 +1499,9 @@ def phase_serving(ck, main_path, vecs, texts, smi):
         "embedding": {**MINILM_PRESET["embedding"], "checkpoint_dir": str(d / "embedder_ckpt")},
         # a 1M-row save after each ingest is I/O the CPU tests cover at small size
         "index": {"data_dir": str(d / "index"), "auto_persist": False},
-        "bm25": {"index_path": str(d / "bm25.json.gz")}})
+        "bm25": {"index_path": str(d / "bm25.json.gz")},
+        "strategy_memory": {"path": str(d / "strategy_memory.json.gz")},
+        "conversation": {"data_dir": str(d / "conversations")}})
     r, q, srv = cfg.retrieval, cfg.quantization, cfg.server
     check((cfg.index.dim, q.precision, q.rescore_multiplier, r.fusion_weighting,
            resolve_fused_depth(r), srv.max_batch, srv.pipeline_depth, srv.coalesce)
@@ -1511,9 +1529,17 @@ def phase_serving(ck, main_path, vecs, texts, smi):
     t0 = time.perf_counter()
     models = LocalNLPModels(cfg)
     t_models = time.perf_counter() - t0
+    # phase 8's questions: 14-word prefixes of corpus texts, drawn with the
+    # seed, and the scripted mock LLM that answers the agents about them
+    arng = np.random.default_rng(SEED + 10)
+    questions = list(dict.fromkeys(
+        " ".join(texts[i].split()[:QUESTION_WORDS])
+        for i in arng.integers(0, N_DOCS, 4 * AGENTIC_RUNS)))[:2 * AGENTIC_RUNS + SUMMARY_RUNS
+                                                             + HTTP_QUERIES + 3]
+    llm = LLMClient(cfg.llm, backend=MockLLMBackend(responder=ScriptedLLM(questions)))
     t0 = time.perf_counter()
     # its orchestrator resolves the BM25 index, which builds from the store
-    app = RadiantTPU(cfg, store=store, local_models=models)
+    app = RadiantTPU(cfg, llm=llm, store=store, local_models=models)
     torch.cuda.synchronize()
     t_bm = time.perf_counter() - t0
     n_bm = app.bm25_index.get_stats()["num_docs"]
@@ -1762,8 +1788,11 @@ def phase_serving(ck, main_path, vecs, texts, smi):
 
     status, raw = http_json(conn, "GET", "/health")
     health = json.loads(raw)
-    check(status == 200 and health["ok"], f"/health {status} {health}")
+    check(status == 200 and health["ok"] and health["llm"], f"/health {status} {health}")
     conn.close()
+    t8 = time.perf_counter()
+    agentic_keys = phase_agentic(ck, main_path, app, llm, questions, port, smi)
+    log(f"phase 8: {time.perf_counter() - t8:.1f} s")
     server.shutdown()
     server.server_close()
     server.api.close()
@@ -1771,6 +1800,8 @@ def phase_serving(ck, main_path, vecs, texts, smi):
     check(not serve_thread.is_alive(), "the server thread did not stop")
 
     rows = serving_rows(ck, eng, bm, qdev2k, qt2k)
+    known = set(known_keys) | {row["_key"] for row in rows}
+    rows += agentic_rows(ck, eng, bm, qdev2k, qt2k, sorted(agentic_keys - known))
     log("phase 7 summary: " + json.dumps({
         "device": smi, "corpus_rows": eng.count, "upsert_s": t_upsert, "models_s": t_models,
         "app_with_bm25_build_s": t_bm, "ingest_s": t_ing, "bm25_tables_after_ingest_s": t_tables, "ingest_chunks_per_s": INGEST_CHUNKS / t_ing,
@@ -1784,6 +1815,595 @@ def phase_serving(ck, main_path, vecs, texts, smi):
     del app, store, models, searcher, res, res2k, qdev, qdev2k
     tmp.cleanup()
     return rows
+
+
+# phase 8: the agentic query path (RAGOrchestrator.run, the agents, the
+# LLM client, /query) over phase 7's app
+AGENTIC_RUNS = 64  # questions through app.query (a) and the rerank-on orchestrator (b)
+SUMMARY_RUNS = 8  # questions through the compressing orchestrator
+HTTP_QUERIES = 16  # concurrent /query requests beside /search load
+SEARCH_CLIENTS = 32  # /search clients beside them
+PROFILED_RUNS = 8
+QUESTION_WORDS = 14
+
+
+class ScriptedLLM:
+    """The mock LLM of phase 8: deterministic replies keyed on each agent's
+    fixed prompt phrases (as tests/test_orchestrator.py scripts them), over
+    questions of corpus words. The plan turns decomposition, rewrite and
+    expansion on (3 sub-questions, 3 rewrites, 2 expansions each: 8
+    effective queries) and multihop on for every fourth question; the
+    critic asks for one "context" retry at its first call on every other
+    question; fact verification and citation get claims and matches that
+    parse. Thread-safe (the HTTP phase calls it from 16 threads)."""
+
+    def __init__(self, questions):
+        import threading
+
+        self.index = {q: i for i, q in enumerate(questions)}
+        self.critiques = {}
+        self.lock = threading.Lock()
+
+    @staticmethod
+    def _after(text, key, stop="\n"):
+        return text.split(key, 1)[1].split(stop, 1)[0].strip()
+
+    @staticmethod
+    def _numbered(text):
+        return [line.split(". ", 1)[1] for line in text.splitlines()
+                if ". " in line and line.split(". ", 1)[0].isdigit()]
+
+    def scripted_retry(self, question) -> bool:
+        return self.index.get(question, 0) % 2 == 1
+
+    def multihop(self, question) -> bool:
+        return self.index.get(question, 0) % 4 == 3
+
+    def __call__(self, messages):
+        last = messages[-1]["content"]
+        if "query-planning agent" in last:
+            q = self._after(last, "Query: ")
+            return json.dumps({"use_decomposition": True, "use_rewrite": True,
+                               "use_expansion": True, "use_rrf": True, "use_automerge": True,
+                               "use_rerank": True, "use_critic": True,
+                               "use_multihop": self.multihop(q), "retrieval_mode": "hybrid",
+                               "tools_to_use": []})
+        if "Decompose the question" in last:
+            w = self._after(last, "Question: ").split()
+            return json.dumps([" ".join(w[0:5]), " ".join(w[5:10]), " ".join(w[10:])])
+        if "Rewrite each query" in last:
+            return json.dumps([" ".join(q.split()[::-1]) for q in self._numbered(last)])
+        if "alternative phrasings" in last:
+            return json.dumps([alt for q in self._numbered(last)
+                               for alt in (" ".join(q.split()[1:]), " ".join(q.split()[:-1]))])
+        if "SEQUENCE of sub-questions" in last:
+            w = self._after(last, "Question: ").split()
+            return json.dumps([" ".join(w[0:6]), "then {prev} " + " ".join(w[6:10])])
+        if "Answer the sub-question" in last:
+            hop = self._after(last, "Sub-question: ")
+            return json.dumps({"answer": hop.split()[-1], "entities": hop.split()[:2],
+                               "confidence": 0.9, "sufficient": hop.startswith("then ")})
+        if "Evaluate this answer" in last:
+            q = self._after(last, "Question: ")
+            with self.lock:
+                n = self.critiques[q] = self.critiques.get(q, 0) + 1
+            retry = n == 1 and self.scripted_retry(q)
+            return json.dumps({"ok": not retry, "confidence": 0.3 if retry else 0.9,
+                               "relevance": 3 if retry else 9, "faithfulness": 8,
+                               "coverage": 3 if retry else 8,
+                               "issues": ["the answer needs other sources"] if retry else [],
+                               "should_retry": retry,
+                               "issue_type": "context" if retry else "none"})
+        if "atomic factual claims" in last:
+            return json.dumps(["The documents describe the question's terms."])
+        if "For each claim" in last:
+            return json.dumps([{"status": "supported", "evidence": "the terms",
+                                "confidence": 0.9}])
+        if "Match each answer sentence" in last:
+            n = len(self._numbered(last.split("Sentences:", 1)[1]))
+            return json.dumps([{"sources": [str(1 + i % 2)], "confidence": 0.9}
+                               for i in range(n)])
+        if "Which tools" in last:
+            return "[]"
+        if "Context:" in last and "Question:" in last:
+            w = self._after(last, "Question: ").split()
+            return (f"The retrieved documents describe {' '.join(w[:3])} in detail [DOC 1]. "
+                    f"They also mention {' '.join(w[3:6])} together [DOC 2].")
+        return "ok"
+
+
+def agentic_rows(ck, eng, bm, qdev, qtexts_, keys):
+    """Kernel rows at the (kernel, D or W, k, B) shapes phase 8 launched
+    that no earlier row measured: the dense scans of the dense agent and of
+    the multihop hops (host queries, kc = 4 x top_k), the sketch scan, and
+    the rerank calibration's binary stage 1 at B = 64. Inputs as
+    serving_rows takes them."""
+    import torch
+
+    from radiant_rag_tpu_torch.ops import quantize as qz
+    from radiant_rag_tpu_torch.ops.similarity import quantize_queries
+
+    qi, _ = quantize_queries(qdev, qz.int8_scale_offset(eng.i8_lo, eng.i8_hi)[0])
+    qind = torch.from_numpy(bm.make_query_indicator(qtexts_, bm.query_tids(qtexts_))).cuda()
+    qwords = qz.pack_binary(qdev)
+    mask = eng.valid.clone()
+    rows = []
+    for name, width, k, b in keys:
+        label = f"k={k} B={b} (agentic path)"
+        if name == "int8_scan_topk" and width == DIM:
+            rows.append(scan_rows(ck, f"dense D={DIM} {label}", eng.i8, qi[:b].contiguous(),
+                                  mask, k))
+        elif name == "int8_scan_topk" and width == bm.sketch_dim:
+            rows.append(scan_rows(ck, f"sketch S={width} {label}", bm._sketch,
+                                  qind[:b].contiguous(), mask, k))
+        elif name == "hamming_scan_topk":
+            rows.append(hamming_scan_row(ck, f"W={width} {label}", eng.codes,
+                                         qwords[:b].contiguous(), mask, k,
+                                         ck.sign_matrix(eng.codes)))
+        else:
+            raise AssertionError(f"phase 8 launched {name} at {(width, k, b)}, which no row "
+                                 "covers")
+        if rows[-1]["_key"] != (name, width, k, b):
+            raise AssertionError(f"row key {rows[-1]['_key']} != launch key {(name, width, k, b)}")
+    return rows
+
+
+class StageTimer:
+    """Host ms of the pipeline's device stages, each between two device
+    synchronizations: wraps methods of the shared objects for one window,
+    and counts the cross-encoder's operations from the shapes it ran."""
+
+    def __init__(self):
+        self.ms, self.calls, self.ce_flops, self._undo = {}, {}, 0.0, []
+
+    def wrap(self, obj, attr, stage):
+        import torch
+
+        fn = getattr(obj, attr)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.ms[stage] = self.ms.get(stage, 0.0) + (time.perf_counter() - t) * 1e3
+            self.calls[stage] = self.calls.get(stage, 0) + 1
+            return out
+
+        setattr(obj, attr, timed)
+        self._undo.append((obj, attr))
+
+    def count_ce(self, ce):
+        fn = ce.forward
+
+        def forward(ids, attn, types):
+            self.ce_flops += ce_flops(ce.bert_cfg, ids.shape[0], ids.shape[1])
+            return fn(ids, attn, types)
+
+        ce.forward = forward
+        self._undo.append((ce, "forward"))
+
+    def install(self, app, models, hy, orchs):
+        for attr, stage in (("embed_device", "embed (device queries)"),
+                            ("embed", "embed (host)"), ("embed_single", "embed (host)"),
+                            ("rerank", "cross-encoder rerank")):
+            self.wrap(models, attr, stage)
+        self.wrap(hy, "search_rows", "search_rows")
+        self.wrap(app.store, "retrieve_by_embedding_batch", "store retrieve (dense agent, hops)")
+        self.wrap(app.bm25_index, "search_batch", "bm25 search (bm25 agent)")
+        for orch in orchs:
+            self.wrap(orch, "_hydrate", "hydration")
+            self.wrap(orch, "fused_runs", "hydration")
+        self.count_ce(models.cross_encoder)
+        return self
+
+    def remove(self):
+        for obj, attr in reversed(self._undo):
+            delattr(obj, attr)
+        self._undo = []
+
+
+def _pct(values, q):
+    v = sorted(values)
+    return v[min(len(v) - 1, int(q * len(v)))]
+
+
+def _docs(hits):
+    return [(d.doc_id, s) for d, s in hits]
+
+
+def _close(got, want, rtol=1e-5, atol=1e-6):
+    """Two (doc id, score) lists equal up to float summation order (the
+    tolerance of tests/_torch_parity.py): scores within it position by
+    position, and a doc out of place only where its score ties the
+    expected one within it."""
+    if len(got) != len(want):
+        return False
+    score = dict(want)
+    for (gi, gs), (wi, ws) in zip(got, want):
+        tol = atol + rtol * abs(ws)
+        if abs(gs - ws) > tol or (gi != wi and abs(score.get(gi, float("inf")) - ws) > tol):
+            return False
+    return True
+
+
+def _diff(got, want):
+    """Where two (doc id, score) lists first differ."""
+    i = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+    return (f"lengths {len(got)} / {len(want)}, first difference at {i}: "
+            f"{got[i:i + 3]} != {want[i:i + 3]}")
+
+
+def phase_agentic(ck, main_path, app, llm, questions, port, smi):
+    """Phase 8: RAGOrchestrator.run with its agents over phase 7's app
+    (1,016,384 leaf rows at MiniLM-L12 width) and a scripted mock LLM.
+    (a) the default config through app.query, the rerank calibration in
+    its first run; (b) a second orchestrator with the rerank stage on every
+    run, each run's device output held against direct calls; a third
+    orchestrator that compresses its context; (c) /query, /query/stream
+    and /conversations over HTTP beside /search load. Returns the
+    (kernel, D or W, k, B) shapes it launched."""
+    import dataclasses
+    import http.client
+    import threading
+
+    import torch
+
+    from radiant_rag_tpu_torch.index.hybrid import embed_queries_device
+    from radiant_rag_tpu_torch.orchestrator import RAGOrchestrator
+
+    orch, hy, store, models = app.orchestrator, app.orchestrator._hybrid, app.store, app.local_models
+    cfg, r = app.config, app.config.retrieval
+    script = llm.backend.responder
+    cal = hy.last_calibration
+    launched = set()
+
+    def summary(results, walls, timer, label):
+        steps = {}
+        for res in results:
+            for st in res.metrics["steps"]:
+                steps[st["name"]] = steps.get(st["name"], 0.0) + st["duration_ms"]
+        per_run = {k: round(v / len(results), 3) for k, v in steps.items()}
+        total = sum(walls) * 1e3
+        stage = {k: round(v / len(results), 3) for k, v in timer.ms.items()}
+        ce_ms = timer.ms.get("cross-encoder rerank", 0.0)
+        tflops = timer.ce_flops / (ce_ms / 1e3) / 1e12 if ce_ms else 0.0
+        log(f"phase 8 {label}: {len(results)} runs, wall p50 {_pct(walls, 0.5) * 1e3:.1f} ms, "
+            f"p99 {_pct(walls, 0.99) * 1e3:.1f} ms, {len(results) / sum(walls):.2f} runs/s; "
+            f"phase ms per run (result.metrics) {json.dumps(per_run)}; device-stage ms per run "
+            f"(synchronized) {json.dumps(stage)}, calls {json.dumps(timer.calls)}; "
+            f"cross-encoder {ce_ms / len(results):.2f} ms per run = "
+            f"{ce_ms / total if total else 0:.3f} of the wall, {tflops:.2f} TFLOP/s "
+            f"({tflops * 1e12 / BF16_FLOPS_PER_S:.4f} of the bf16 peak)")
+        return {"runs": len(results), "p50_ms": _pct(walls, 0.5) * 1e3,
+                "p99_ms": _pct(walls, 0.99) * 1e3, "runs_per_s": len(results) / sum(walls),
+                "phase_ms_per_run": per_run, "stage_ms_per_run": stage,
+                "ce_ms_per_run": ce_ms / len(results), "ce_share": ce_ms / total if total else 0,
+                "ce_tflops": tflops}
+
+    def check_result(res, label):
+        check(res.success and not res.degraded, f"{label}: {res.query!r} success "
+              f"{res.success}, degraded {res.degraded}")
+        crit = [st["extra"]["attempt"] for st in res.metrics["steps"] if st["name"] == "critique"]
+        # the critic can retry only at an attempt before the last
+        want = int(script.scripted_retry(res.query) and bool(crit)
+                   and crit[0] < cfg.agentic.max_critic_retries)
+        check(res.retry_count == want, f"{label}: {res.query!r} retry_count {res.retry_count}, "
+              f"expected {want} (critique attempts {crit})")
+        if not res.low_confidence:
+            check(res.citations.get("num_matches", 0) > 0 and res.fact_verification,
+                  f"{label}: {res.query!r} has no citations")
+        else:
+            check(want == 0 and script.scripted_retry(res.query),
+                  f"{label}: {res.query!r} gave up unscripted")
+        json.dumps(res.to_dict())
+
+    def run_all(label, fn, qs):
+        results, walls = [], []
+        for q in qs:
+            t = time.perf_counter()
+            results.append(fn(q))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        return results, walls
+
+    def shapes():
+        keys = dict(ck.launches_by_shape)
+        launched.update(keys)
+        return {"/".join(map(str, k)): v for k, v in sorted(keys.items())}
+
+    qa, qb, qs_ = (questions[:AGENTIC_RUNS], questions[AGENTIC_RUNS:2 * AGENTIC_RUNS],
+                   questions[2 * AGENTIC_RUNS:2 * AGENTIC_RUNS + SUMMARY_RUNS])
+    qh = questions[2 * AGENTIC_RUNS + SUMMARY_RUNS:]
+    for q in questions:
+        check(len(q.split()) >= 12 and not orch._is_simple_query(q), q)
+
+    # (a) the default config through app.query, in sequence
+    timer = StageTimer().install(app, models, hy, [orch])
+    cal_ms = []
+    ensure = orch._ensure_rerank_calibration
+
+    def timed_ensure():
+        t = time.perf_counter()
+        ensure()
+        torch.cuda.synchronize()
+        cal_ms.append(time.perf_counter() - t)
+
+    orch._ensure_rerank_calibration = timed_ensure
+    (res_a, walls_a), d_a, t_a = main_path(lambda: run_all(
+        "a", lambda q: app.query(q, use_cache=False), qa))
+    del orch._ensure_rerank_calibration
+    shapes_a = shapes()
+    timer.remove()
+    check(hy.last_calibration is cal and not hy.needs_calibration(),
+          "the fusion calibration ran again")
+    verdict = orch.rerank_calibration
+    check(verdict and verdict["probes"] >= 32, f"rerank calibration: {verdict}")
+    log(f"phase 8 rerank calibration (inside the first run): {cal_ms[0]:.2f} s; "
+        f"{json.dumps(verdict)}; rerank enabled after it: {orch.rerank.enabled}")
+    for res in res_a:
+        check_result(res, "phase 8 (a)")
+    modes_a = {}
+    for res in res_a:
+        seq = "/".join(st["extra"]["mode"] for st in res.metrics["steps"]
+                       if st["name"] == "retrieval")
+        modes_a[seq] = modes_a.get(seq, 0) + 1
+    sum_a = summary(res_a, walls_a, timer, "(a) default config, app.query")
+    log(f"phase 8 (a): retrieval modes per run {json.dumps(modes_a)}; retry_count "
+        f"{json.dumps({n: sum(x.retry_count == n for x in res_a) for n in (0, 1)})}; low "
+        f"confidence {sum(x.low_confidence for x in res_a)}; effective queries "
+        f"{json.dumps({n: sum(len(x.effective_queries) == n for x in res_a) for n in range(1, 9)})}"
+        f"; launches {d_a}; by (kernel/width/k/B) {json.dumps(shapes_a)}")
+
+    # (b) the rerank stage on every run, over the same store, BM25 index,
+    # models, LLM and fused searcher (the calibration is phase 7's)
+    cfg_b = dataclasses.replace(cfg, rerank=dataclasses.replace(cfg.rerank,
+                                                                auto_disable_probes=0))
+
+    def orchestrator(c):
+        o = RAGOrchestrator(c, store, app.bm25_index, models, app.llm,
+                            device_lock=app.device_lock)
+        o._hybrid = hy
+        return o
+
+    orch_b = orchestrator(cfg_b)
+    timer = StageTimer().install(app, models, hy, [orch_b])
+    (res_b, walls_b), d_b, t_b = main_path(lambda: run_all("b", orch_b.run, qb))
+    shapes_b = shapes()
+    timer.remove()
+    sum_b = summary(res_b, walls_b, timer, "(b) rerank on every run")
+    level = {"leaves": 0, "parents": 1, "all": -1}[r.search_scope]
+
+    def doc_of(row):
+        did = store.id_for_row(int(row))
+        return store.get_doc(did) if did else None
+
+    def dedup(hits):
+        best = {}
+        for d, s in hits:
+            if d.doc_id not in best or s > best[d.doc_id][1]:
+                best[d.doc_id] = (d, s)
+        return sorted(best.values(), key=lambda ds: -ds[1])
+
+    def rrf(runs, k):
+        score, first = {}, {}
+        for run in runs:
+            for rank, (d, _s) in enumerate(run, start=1):
+                score[d.doc_id] = score.get(d.doc_id, 0.0) + 1.0 / (r.rrf_k + rank)
+                first.setdefault(d.doc_id, d)
+        return [(first[i], s) for i, s in sorted(score.items(), key=lambda kv: -kv[1])[:k]]
+
+    def expected_fused(res, mode):
+        eq = res.effective_queries
+        if mode == "hybrid":
+            qdev = embed_queries_device(models, hy.engine, eq)
+            out = hy.search_rows(None, eq, _qdev=qdev, dense_k=r.dense_top_k,
+                                 bm25_k=r.bm25_top_k, fused_k=r.fused_top_k, rrf_k=r.rrf_k,
+                                 mode=store.default_search_mode,
+                                 rescore_multiplier=cfg.quantization.rescore_multiplier,
+                                 level_code=level, fusion=r.fusion_weighting)
+            fs, fr = out["fused"]
+            runs = [[(doc_of(x), float(s)) for s, x in zip(fs[i], fr[i]) if x >= 0]
+                    for i in range(len(eq))]
+            runs = [run for run in runs if run]
+            return rrf(runs, r.fused_top_k) if len(runs) > 1 else runs[0][:r.fused_top_k]
+        # one leg, fused with the other leg's docs that an earlier attempt
+        # of the run left in the context (as the pipeline does)
+        if mode == "dense":
+            hits = store.retrieve_by_embedding_batch(models.embed(eq), top_k=r.dense_top_k,
+                                                     min_similarity=r.min_similarity,
+                                                     doc_level_filter="leaf")
+            leg, runs = dedup([h for q in hits for h in q]), None
+            check(_docs(res.dense_docs) == _docs(leg), f"dense_docs of {res.query!r}: "
+                  f"{_diff(_docs(res.dense_docs), _docs(leg))}")
+            runs = [x for x in (leg, res.bm25_docs) if x]
+        else:
+            # the standalone BM25 search sums postings with a scatter-add,
+            # whose float order the card does not fix: its leg is held to
+            # the parity tolerance, the fusion of the run's own leg exactly
+            hits = app.bm25_index.search_batch(eq, top_k=r.bm25_top_k)
+            want = _docs(dedup([h for q in hits for h in q]))
+            check(_close(_docs(res.bm25_docs), want),
+                  f"bm25_docs of {res.query!r}: {_diff(_docs(res.bm25_docs), want)}")
+            leg = res.bm25_docs
+            runs = [x for x in (res.dense_docs, leg) if x]
+        return rrf(runs, r.fused_top_k) if len(runs) > 1 else leg[:r.fused_top_k]
+
+    checked, hops, by_mode = 0, [], {}
+    for res in res_b:
+        check_result(res, "phase 8 (b)")
+        mode = [st["extra"]["mode"] for st in res.metrics["steps"]
+                if st["name"] == "retrieval"][-1]
+        by_mode[mode] = by_mode.get(mode, 0) + 1
+        if script.multihop(res.query):
+            n_hops = sum(st["name"] == "multihop" for st in res.metrics["steps"])
+            hops.append((n_hops, sum(s == 0.7 for _, s in res.fused_docs)))
+        else:
+            want = expected_fused(res, mode)
+            check(_docs(res.fused_docs) == _docs(want),
+                  f"phase 8 (b) {mode}: fused_docs differ from a direct call for {res.query!r}")
+            checked += 1
+        merged = orch_b.automerge.merge(res.fused_docs)
+        want = orch_b.rerank.rerank(res.query, merged, orch_b.rerank.top_k)
+        check(res.reranked_docs and _docs(res.reranked_docs) == _docs(want),
+              f"phase 8 (b): reranked_docs differ from rerank.rerank for {res.query!r}")
+    log(f"phase 8 (b): fused_docs equal the direct hydrated search of the run's effective "
+        f"queries on {checked} runs (final retrieval mode {json.dumps(by_mode)}), doc ids and "
+        f"scores exactly; reranked_docs equal rerank.rerank on all {len(res_b)}; multihop runs "
+        f"(hop steps, hop docs merged at 0.7): {hops}; launches {d_b}; by "
+        f"(kernel/width/k/B) {json.dumps(shapes_b)}")
+
+    idle = profile_batch(lambda: [orch_b.run(q) for q in qb[:PROFILED_RUNS]],
+                         f"phase 8: {PROFILED_RUNS} runs of (b)")
+    shapes()
+
+    # a third orchestrator whose context is over its compression threshold:
+    # the summarization's dedup embeds the docs on the card
+    cfg_s = dataclasses.replace(cfg_b, summarization=dataclasses.replace(
+        cfg.summarization, max_total_context_chars=1000))
+    orch_s = orchestrator(cfg_s)
+    stats = []
+    compress = orch_s.summarization.compress
+
+    def recorded(docs):
+        out, st = compress(docs)
+        stats.append(dict(st.__dict__))
+        return out, st
+
+    orch_s.summarization.compress = recorded
+    (res_s, walls_s), d_s, _ = main_path(lambda: run_all("s", orch_s.run, qs_))
+    shapes()
+    for res in res_s:
+        check_result(res, "phase 8 (summarization)")
+        want = [d for d, _ in orch_s.rerank.rerank(res.query, orch_s.automerge.merge(
+            res.fused_docs), orch_s.rerank.top_k)]
+        got = [d.doc_id for d, _ in res.reranked_docs]
+        it = iter(d.doc_id for d in want)
+        check(got and all(x in it for x in got),
+              f"phase 8 summarization: {got} is not an in-order subset of the rerank")
+    check(stats and all(st["docs_deduped"] + st["docs_summarized"] >= 0 for st in stats))
+    log(f"phase 8 summarization (max_total_context_chars 1000): {len(res_s)} runs, p50 "
+        f"{_pct(walls_s, 0.5) * 1e3:.1f} ms; compression stats {json.dumps(stats)}; "
+        f"launches {d_s}")
+
+    # (c) HTTP: concurrent /query beside /search load, one stream, a conversation
+    def post(conn, path, body):
+        conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+
+    q_lat, search_lat, errors = [], [], []
+    stop = threading.Event()
+    search_q = [" ".join(q.split()[:6]) for q in questions]
+
+    def connected():  # opened one at a time, before the window (the listen backlog is 5)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        conn.connect()
+        return conn
+
+    def querier(q, conn):
+        try:
+            t = time.perf_counter()
+            status, raw = post(conn, "/query", {"question": q})
+            q_lat.append(time.perf_counter() - t)
+            body = json.loads(raw)
+            if status != 200 or not body["success"] or body["degraded"]:
+                errors.append((q, status, body.get("error", body.get("degraded"))))
+        except Exception as exc:  # reported below
+            errors.append((q, exc))
+        finally:
+            conn.close()
+
+    def searcher_client(i, conn):
+        try:
+            n = i
+            while not stop.is_set():
+                t = time.perf_counter()
+                status, _raw = post(conn, "/search", {"query": search_q[n % len(search_q)],
+                                                      "mode": "hybrid", "top_k": TOP_K})
+                search_lat.append(time.perf_counter() - t)
+                n += SEARCH_CLIENTS
+                if status != 200:
+                    errors.append(("/search", status))
+        except Exception as exc:
+            errors.append(("/search", exc))
+        finally:
+            conn.close()
+
+    def http_window():
+        searchers = [threading.Thread(target=searcher_client, args=(i, connected()),
+                                      daemon=True) for i in range(SEARCH_CLIENTS)]
+        queriers = [threading.Thread(target=querier, args=(q, connected()), daemon=True)
+                    for q in qh[:HTTP_QUERIES]]
+        for t in searchers + queriers:
+            t.start()
+        t0 = time.perf_counter()
+        for t in queriers:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        stop.set()
+        for t in searchers:
+            t.join(timeout=60)
+        check(not any(t.is_alive() for t in searchers + queriers), "an HTTP client hung")
+        return wall
+
+    wall_c, d_c, _ = main_path(http_window)
+    shapes()
+    check(not errors, f"phase 8 HTTP errors: {errors[:3]}")
+    check(len(q_lat) == HTTP_QUERIES and search_lat, "phase 8: missing HTTP answers")
+    log(f"phase 8 HTTP: {HTTP_QUERIES} concurrent /query in {wall_c:.2f} s, latency p50 "
+        f"{_pct(q_lat, 0.5) * 1e3:.1f} ms, p99 {_pct(q_lat, 0.99) * 1e3:.1f} ms; beside them "
+        f"{len(search_lat)} /search from {SEARCH_CLIENTS} clients "
+        f"({len(search_lat) / wall_c:.1f} requests/s), p50 {_pct(search_lat, 0.5) * 1e3:.1f} "
+        f"ms, p99 {_pct(search_lat, 0.99) * 1e3:.1f} ms; launches {d_c}")
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    stream_q = qh[HTTP_QUERIES]
+    t = time.perf_counter()
+    conn.request("POST", "/query/stream", json.dumps({"question": stream_q}),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    check(resp.status == 200 and resp.getheader("Content-Type") == "text/event-stream")
+    raw = resp.read().decode()
+    t_stream = time.perf_counter() - t
+    conn.close()
+    events = [json.loads(c[len("data: "):]) for c in raw.split("\n\n") if c]
+    kinds = [e["event"] for e in events]
+    starts = [e["step"] for e in events if e["event"] == "step_start"]
+    check(kinds.count("result") == 1 and kinds[-1] == "result" and "error" not in kinds
+          and "token" in kinds and starts == [e["step"] for e in events
+                                              if e["event"] == "step_end"]
+          and {"planning", "retrieval", "post_retrieval", "generation"} <= set(starts),
+          f"/query/stream events: {kinds}")
+    check(events[-1]["success"] and not events[-1]["degraded"], events[-1])
+    log(f"phase 8 /query/stream: {len(events)} events ({kinds.count('token')} tokens, steps "
+        f"{starts}) in {t_stream * 1e3:.1f} ms")
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    status, raw = post(conn, "/conversations", {})
+    cid = json.loads(raw)["conversation_id"]
+    turns = []
+    for q in qh[HTTP_QUERIES + 1:HTTP_QUERIES + 3]:
+        status, raw = post(conn, "/query", {"question": q, "conversation_id": cid})
+        check(status == 200, raw[:300])
+        turns.append(json.loads(raw))
+    conn.close()
+    synth = [c for c in llm.backend.calls if c[-1]["content"].startswith("Context:")
+             and c[-1]["content"].endswith(f"Question: {turns[1]['query']}")]
+    check(synth and synth[-1][1:3] == [{"role": "user", "content": turns[0]["query"]},
+                                      {"role": "assistant", "content": turns[0]["answer"]}],
+          "the conversation's second synthesis prompt does not carry the first turn")
+    check([x.query for x in app.conversations.get(cid).turns] == [x["query"] for x in turns])
+    log(f"phase 8 /conversations: {cid}, two /query turns; the second synthesis prompt "
+        f"carries the first turn")
+    log("phase 8 summary: " + json.dumps({
+        "device": smi, "rerank_calibration_s": cal_ms[0], "rerank_calibration": verdict,
+        "a": sum_a, "b": sum_b, "idle_share_b": idle, "b_checked_fused": checked,
+        "summarization_p50_ms": _pct(walls_s, 0.5) * 1e3,
+        "http_query_p50_ms": _pct(q_lat, 0.5) * 1e3, "http_query_p99_ms": _pct(q_lat, 0.99) * 1e3,
+        "http_search_requests_per_s": len(search_lat) / wall_c,
+        "stream_ms": t_stream * 1e3}))
+    return launched
 
 
 if __name__ == "__main__":

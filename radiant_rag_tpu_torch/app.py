@@ -1,18 +1,23 @@
-"""RadiantTPU: the application facade and CLI of the port (retrieval half).
+"""RadiantTPU: the application facade and CLI of the port.
 
 The port's counterpart of `radiant_rag_tpu/app.py`, under the same name so
 each method has its counterpart: ingestion (files or chunks -> hierarchical
 parent / leaf chunks -> embed on the device -> upsert -> BM25 sync), the
 query cache, `search` / `search_batch` / `search_batch_async` in the hybrid,
-dense and bm25 modes, `warmup`, and the admin calls. Hybrid search is the
-fused `HybridSearcher.search_rows` over the store's engine, fed by the query
+dense and bm25 modes, `warmup`, the admin calls, and the agentic query path:
+`query` (cached), `query_raw`, `query_stream` (progress, token and result
+events), `simple_query` and conversations. Hybrid search is the fused
+`HybridSearcher.search_rows` over the store's engine, fed by the query
 embeddings on the device (`embed_queries_device` -> `_qdev`), at the
 calibrated fusion (`fusion_weighting: auto`).
 
-Not here yet, each raising `NotImplementedError` with its ROADMAP item: the
-agentic query path (`query`, `query_stream`, `simple_query`, conversations,
-reports), the crawlers (`ingest_urls`, `ingest_github`), all queue A item 11,
-and `train` (queue A item 12).
+Card work is serialized by one lock, `device_lock`, which the server's
+search batches, /health's embed and every device stage of a pipeline run
+take; a run holds it only for its device stages, never across an LLM call.
+
+Not here yet, each raising `NotImplementedError` with its ROADMAP item:
+the crawlers (`ingest_urls`, `ingest_github`) and the reports and TUI,
+queue A item 11 (rest), and `train` (queue A item 12).
 
 `RadiantTPU(device=None)` runs on CUDA and raises without a card; tests
 pass device="cpu".
@@ -23,8 +28,10 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import queue
 import re
 import sys
+import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -36,48 +43,40 @@ from radiant_rag_tpu_torch.index.hybrid import embed_queries_device
 from radiant_rag_tpu_torch.ingestion.processor import (
     ChunkSplitter, DocumentProcessor, IngestedChunk,
 )
+from radiant_rag_tpu_torch.llm.client import LLMClient
 from radiant_rag_tpu_torch.orchestrator import (
-    AGENTIC_NOT_PORTED, RAGOrchestrator, SimplifiedOrchestrator,
+    PipelineResult, RAGOrchestrator, SimplifiedOrchestrator,
 )
 from radiant_rag_tpu_torch.utils.cache import QueryCache
+from radiant_rag_tpu_torch.utils.conversation import ConversationManager
 from radiant_rag_tpu_torch.utils.logging import setup_logging
 from radiant_rag_tpu_torch.utils.metrics import MetricsCollector
 
 logger = logging.getLogger(__name__)
 
 CRAWLERS_NOT_PORTED = ("the web and GitHub crawlers are not ported yet: "
-                       "ROADMAP queue A item 11")
+                       "ROADMAP queue A item 11 (rest)")
+UI_NOT_PORTED = ("the reports and the terminal UI (ui/) are not ported yet: "
+                 "ROADMAP queue A item 11 (rest)")
 TRAIN_NOT_PORTED = "embedder training is not ported yet: ROADMAP queue A item 12"
 
 Hits = List[Tuple[Any, float]]
 
 
-def rrf_fuse_docs(runs: Sequence[Hits], rrf_k: int, top_k: int) -> Hits:
-    """Reciprocal-rank fusion of (doc, score) runs: the arithmetic of the
-    JAX package's `RRFAgent.fuse` (score[doc] += 1 / (rrf_k + rank), the
-    first doc object of an id kept, a stable sort by score)."""
-    scores: Dict[str, float] = {}
-    docs: Dict[str, Any] = {}
-    for run in runs:
-        for rank, (doc, _score) in enumerate(run, start=1):
-            scores[doc.doc_id] = scores.get(doc.doc_id, 0.0) + 1.0 / (rrf_k + rank)
-            docs.setdefault(doc.doc_id, doc)
-    fused = sorted(scores.items(), key=lambda kv: -kv[1])
-    return [(docs[doc_id], score) for doc_id, score in fused[:top_k]]
-
-
 class RadiantTPU:
     """The application facade."""
 
-    def __init__(self, config: Optional[AppConfig] = None, local_models=None, store=None,
-                 device=None) -> None:
+    def __init__(self, config: Optional[AppConfig] = None, llm: Optional[LLMClient] = None,
+                 local_models=None, store=None, device=None) -> None:
         # the JAX package also enables its persistent compilation cache here;
         # the port's kernels are built once per checkout (`_build.py`) and
         # PyTorch eager compiles nothing per shape, so there is no counterpart
         self.config = config or config_from_dict({})
         self.device = resolve_device(device)
+        self.device_lock = threading.RLock()  # module doc
         self.store = store if store is not None else create_vector_store(self.config,
                                                                          self.device)
+        self.llm = llm or LLMClient(self.config.llm)
         if local_models is None:
             from radiant_rag_tpu_torch.models.registry import LocalNLPModels
 
@@ -85,6 +84,10 @@ class RadiantTPU:
         self.local_models = local_models
         self.bm25_index = PersistentBM25Index.from_config(self.store, self.config.bm25,
                                                           device=self.device)
+        conv = self.config.conversation
+        self.conversations = ConversationManager(
+            max_turns=conv.max_turns, data_dir=conv.data_dir, ttl_s=conv.ttl_s,
+        ) if conv.enabled else None
         self.metrics_collector = MetricsCollector()
         self.query_cache = QueryCache(self.config.cache.query_cache_size,
                                       self.config.cache.query_cache_ttl_s)
@@ -92,9 +95,12 @@ class RadiantTPU:
         self.processor = DocumentProcessor(chunk_size=ing.max_parent_chars // 10,
                                            overlap=ing.chunk_overlap,
                                            pdf_strategy=ing.pdf_strategy)
-        self.orchestrator = RAGOrchestrator(self.config, self.store, self.bm25_index,
-                                            self.local_models)
-        self._simple = SimplifiedOrchestrator()
+        self.orchestrator = RAGOrchestrator(
+            self.config, self.store, self.bm25_index, self.local_models, self.llm,
+            conversation_manager=self.conversations,
+            metrics_collector=self.metrics_collector, device_lock=self.device_lock)
+        self._simple = SimplifiedOrchestrator(self.store, self.local_models, self.llm,
+                                              device_lock=self.device_lock)
 
     # ------------------------------------------------------------------
     # ingestion
@@ -188,23 +194,82 @@ class RadiantTPU:
         return out
 
     # ------------------------------------------------------------------
-    # the agentic path and training: not ported yet
+    # querying
     # ------------------------------------------------------------------
     def query(self, question: str, conversation_id: str = "", use_cache: bool = True,
-              progress: Optional[Any] = None):
-        raise NotImplementedError(AGENTIC_NOT_PORTED)
+              progress: Optional[Any] = None) -> PipelineResult:
+        """The full agentic query. A repeated question outside a
+        conversation is served from the query cache. `progress(event,
+        step_name, info)` observes the phase boundaries live."""
+        if use_cache and not conversation_id:
+            cached = self.query_cache.get("query", question)
+            if cached is not None:
+                return cached
+        history = []
+        if conversation_id and self.conversations is not None:
+            history = self.conversations.get_history_for_synthesis(conversation_id)
+        result = self.orchestrator.run(question, conversation_id=conversation_id,
+                                       conversation_history=history, progress=progress)
+        if use_cache and not conversation_id and result.success and not result.low_confidence:
+            self.query_cache.put("query", question, result)
+        return result
 
     def query_raw(self, question: str) -> Dict[str, Any]:
-        raise NotImplementedError(AGENTIC_NOT_PORTED)
+        return self.query(question).to_dict()
 
     def query_stream(self, question: str, conversation_id: str = ""):
-        raise NotImplementedError(AGENTIC_NOT_PORTED)
+        """A streaming query: yields progress events as the phases run, the
+        answer's tokens, then the result (/query/stream). Events:
+          {"event": "step_start" | "step_end", "step": str, ...info}
+          {"event": "token", "text": str}
+          {"event": "result", ...PipelineResult.to_dict(), "answer": str}
+          {"event": "error", "error": str}  (the run raised; the last event)
+        A cache hit yields the result alone."""
+        cached = self.query_cache.get("query", question) if not conversation_id else None
+        if cached is not None:
+            yield {"event": "result", "cached": True, **cached.to_dict(),
+                   "answer": cached.answer}
+            return
+        events: "queue.Queue" = queue.Queue()
+
+        def progress(event, step, info):
+            events.put({"event": event, "step": step, **info})
+
+        history = []
+        if conversation_id and self.conversations is not None:
+            history = self.conversations.get_history_for_synthesis(conversation_id)
+
+        def runner():
+            try:
+                result = self.orchestrator.run(
+                    question, conversation_id=conversation_id, conversation_history=history,
+                    progress=progress,
+                    token_sink=lambda chunk: events.put({"event": "token", "text": chunk}))
+                if not conversation_id and result.success and not result.low_confidence:
+                    self.query_cache.put("query", question, result)
+                events.put({"event": "result", **result.to_dict(), "answer": result.answer})
+            except Exception as exc:  # the stream's last event
+                events.put({"event": "error", "error": f"{type(exc).__name__}: {exc}"})
+            finally:
+                events.put(None)
+
+        worker = threading.Thread(target=runner, daemon=True)
+        worker.start()
+        while True:
+            item = events.get()
+            if item is None:
+                break
+            yield item
+        worker.join(timeout=5.0)
 
     def simple_query(self, question: str) -> str:
+        """The minimal RAG path: retrieve, then one LLM call."""
         return self._simple.run(question)
 
     def start_conversation(self) -> str:
-        raise NotImplementedError(AGENTIC_NOT_PORTED)
+        if self.conversations is None:
+            raise RuntimeError("conversations disabled in config")
+        return self.conversations.start_conversation()
 
     def train(self, *args: Any, **kwargs: Any) -> Dict[str, float]:
         raise NotImplementedError(TRAIN_NOT_PORTED)
@@ -330,17 +395,9 @@ class RadiantTPU:
         """The fused hybrid searcher, refreshed for serving: the live BM25
         index and store engine, and calibrated when due (None when no
         engine backs the store or it is empty)."""
-        searcher = self.orchestrator._hybrid
-        if searcher is None or self.store.count_documents() == 0:
+        if self.orchestrator._hybrid is None or self.store.count_documents() == 0:
             return None
-        searcher.rebind_bm25(self.bm25_index.index)  # load / rebuild swap the index
-        if searcher.engine is not self.store.engine:
-            # clear_index swaps the engine; the JAX package keeps searching
-            # the old one (ROADMAP section C)
-            searcher.engine = self.store.engine
-            searcher.invalidate_calibration()
-        self.orchestrator._ensure_fusion_calibration()
-        return searcher
+        return self.orchestrator.refresh_fused_searcher()
 
     def _dispatch_fused(self, searcher, queries: List[str], top_k: int, fetch: bool = True):
         """Embed the batch on the device, padded to the engine's bucket, and
@@ -356,19 +413,7 @@ class RadiantTPU:
             fusion=self.config.retrieval.fusion_weighting, fetch=fetch, _qdev=qdev)
 
     def _resolve_fused_rows(self, res, n_queries: int) -> List[Hits]:
-        scores, rows = res["fused"]
-        batched = []
-        for qi in range(n_queries):
-            hits = []
-            for s, r in zip(scores[qi], rows[qi]):
-                if r < 0:
-                    continue
-                doc_id = self.store.id_for_row(int(r))
-                doc = self.store.get_doc(doc_id) if doc_id else None
-                if doc is not None:
-                    hits.append((doc, float(s)))
-            batched.append(hits)
-        return batched
+        return self.orchestrator.fused_runs(*res["fused"])[:n_queries]
 
     def search_batch_async(self, queries: List[str], mode: str = "hybrid", top_k: int = 10,
                            use_cache: bool = True):
@@ -409,7 +454,7 @@ class RadiantTPU:
         embs = self.local_models.embed(queries)
         dense = self.store.retrieve_by_embedding_batch(embs, top_k=top_k)
         sparse = self.bm25_index.search_batch(queries, top_k=top_k)
-        return [rrf_fuse_docs([dense[i], sparse[i]], self.config.retrieval.rrf_k, top_k)
+        return [self.orchestrator.fusion.fuse([dense[i], sparse[i]], top_k=top_k)
                 for i in range(len(queries))]
 
     # ------------------------------------------------------------------
@@ -435,12 +480,17 @@ class RadiantTPU:
 
     def check_health(self) -> Dict[str, Any]:
         """Each component's health; `ok` when the store, BM25 and the models
-        answer. `llm` is False until the LLM client is ported and, as in
-        the JAX package, does not count towards `ok`."""
+        answer (the LLM does not count, as in the JAX package). The models'
+        embed takes the device lock; the LLM ping does not."""
         health = {"store": False, "bm25": False, "models": False, "llm": False}
+
+        def models():
+            with self.device_lock:
+                return self.local_models.embed_single("health check").shape[0] > 0
+
         probes = {"store": self.store.ping,
                   "bm25": lambda: self.bm25_index.get_stats() is not None,
-                  "models": lambda: self.local_models.embed_single("health check").shape[0] > 0}
+                  "models": models, "llm": self.llm.backend.ping}
         for name, probe in probes.items():
             try:  # a health check reports a failing component, it does not raise
                 health[name] = bool(probe())
@@ -450,15 +500,16 @@ class RadiantTPU:
         return health
 
     def get_stats(self) -> Dict[str, Any]:
-        """Index, BM25, cache and run statistics. The JAX package's `llm`
-        and `agents` keys are left out until those layers are ported."""
+        """Index, BM25, LLM, cache, run and agent statistics."""
         emb = getattr(self.local_models, "embedder", None)
         return {
             "index": self.store.get_index_info(),
             "bm25": self.bm25_index.get_stats(),
+            "llm": self.llm.stats(),
             "caches": {"query": self.query_cache.stats(),
                        "embedding": emb.cache.stats() if emb is not None else {}},
             "runs": self.metrics_collector.summary(),
+            "agents": self.orchestrator.get_agent_stats(),
         }
 
 
@@ -535,14 +586,23 @@ def build_parser() -> argparse.ArgumentParser:
 # subcommands whose layers are not ported yet, and the ROADMAP item of each
 _NOT_PORTED_COMMANDS = {
     "ingest-urls": CRAWLERS_NOT_PORTED, "ingest-github": CRAWLERS_NOT_PORTED,
-    "query": AGENTIC_NOT_PORTED, "simple-query": AGENTIC_NOT_PORTED,
-    "interactive": AGENTIC_NOT_PORTED, "train": TRAIN_NOT_PORTED,
-    "tui": "the terminal UI is not ported yet: ROADMAP queue A item 11",
+    "train": TRAIN_NOT_PORTED, "tui": UI_NOT_PORTED,
 }
 
 
 def _print_json(obj: Any) -> None:
     print(json.dumps(obj, indent=2, default=str))
+
+
+def _print_answer(result: PipelineResult) -> None:
+    """The answer, then the run's summary as JSON (the JAX CLI's rich
+    display lives in ui/, not ported yet)."""
+    print(result.answer)
+    summary = result.to_dict()
+    summary.pop("answer")
+    summary["metrics"] = {s["name"]: round(s["duration_ms"], 1)
+                          for s in summary["metrics"].get("steps", [])}
+    _print_json(summary)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -552,9 +612,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 1
     if args.command in _NOT_PORTED_COMMANDS:
         raise NotImplementedError(_NOT_PORTED_COMMANDS[args.command])
-    if args.command == "search" and args.save:
-        raise NotImplementedError("search reports (ui/reports) are not ported yet: "
-                                  "ROADMAP queue A item 11")
+    if (args.command == "search" and args.save) or (args.command == "query" and args.report):
+        raise NotImplementedError(UI_NOT_PORTED)
     config = load_config(args.config) if args.config else config_from_dict({})
     setup_logging("DEBUG" if args.verbose else config.logging.level,
                   file=config.logging.file, color=config.logging.color)
@@ -566,6 +625,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         hits = app.search(args.query, mode=args.mode, top_k=args.top_k)
         _print_json([{"doc_id": d.doc_id, "score": s, "source": d.source,
                       "content": d.content[:300]} for d, s in hits])
+    elif args.command == "query":
+        _print_answer(app.query(args.question, conversation_id=args.conversation))
+    elif args.command == "simple-query":
+        print(app.simple_query(args.question))
+    elif args.command == "interactive":
+        print("radiant-tpu-torch interactive mode: an empty line exits")
+        cid = app.start_conversation() if app.conversations is not None else ""
+        while True:
+            try:
+                question = input("query> ").strip()
+            except (EOFError, KeyboardInterrupt):
+                break
+            if not question:
+                break
+            _print_answer(app.query(question, conversation_id=cid))
     elif args.command == "serve":
         from radiant_rag_tpu_torch.server import serve
 

@@ -6,21 +6,30 @@ The port's counterpart of `radiant_rag_tpu/server.py`. Endpoints:
   GET  /stats             index and serving statistics, /search latency percentiles
   POST /search            {"query": str, "mode"?: "hybrid|dense|bm25", "top_k"?: int}
                           or {"queries": [str], ...}: one batch, "hits_batch" back
+  POST /query             {"question": str, "conversation_id"?: str}: the agentic
+                          pipeline's result and answer
+  POST /query/stream      the same as Server-Sent Events: step_start / step_end,
+                          token, then one result (or error) event; the connection
+                          closes at the end of the stream
+  POST /simple_query      {"question": str}: the minimal RAG path
+  POST /conversations     a new conversation id
   POST /ingest/documents  {"paths": [str], "recursive"?: bool}
 
-and the JAX package's other routes (/query, /query/stream, /simple_query,
-/ingest/urls, /ingest/github, /conversations), whose app methods are not
-ported yet: they answer 500 with the reason and its ROADMAP item, as any
-failing handler does.
+and the JAX package's crawler routes (/ingest/urls, /ingest/github), whose
+app methods are not ported yet: they answer 500 with the reason and its
+ROADMAP item, as any failing handler does.
 
 Implementation: stdlib ThreadingHTTPServer. Device work is serialized
-through one lock (`RagAPI._lock`), /health's embedding included. /search
-scales past the lock by cross-request coalescing (`utils/batching.py`):
-concurrent searches with the same (mode, top_k) merge into one batch, and
-with `server.pipeline_depth` > 1 the coalescer dispatches a batch under the
-lock and resolves it outside, so one batch's device->host copy overlaps the
-next batch's dispatch. A coalescer thread dispatches on its current CUDA
-stream, the default stream, as every other thread of the process does.
+through the app's `device_lock` (`RagAPI._lock`): the search batches, the
+ingest, /health's embedding, and each device stage of a /query run, which
+takes it per stage, never across an LLM call, so a slow LLM does not stall
+/search. /search scales past the lock by cross-request coalescing
+(`utils/batching.py`): concurrent searches with the same (mode, top_k)
+merge into one batch, and with `server.pipeline_depth` > 1 the coalescer
+dispatches a batch under the lock and resolves it outside, so one batch's
+device->host copy overlaps the next batch's dispatch. A coalescer thread
+dispatches on its current CUDA stream, the default stream, as every other
+thread of the process does.
 """
 
 from __future__ import annotations
@@ -53,7 +62,7 @@ class RagAPI:
     def __init__(self, app, coalesce: Optional[bool] = None, max_batch: Optional[int] = None,
                  max_wait_ms: Optional[float] = None) -> None:
         self.app = app
-        self._lock = threading.Lock()
+        self._lock = app.device_lock  # shared with the app's pipeline runs
         # per-request /search wall-time ring for /stats latency percentiles
         self._lat = collections.deque(maxlen=4096)
         self._lat_lock = threading.Lock()
@@ -96,6 +105,11 @@ class RagAPI:
             self._coalescer.stop()
             self._coalescer = None
 
+    def stream_query(self, question: str, conversation_id: str = ""):
+        """The event dicts of /query/stream; the run takes the device lock
+        per device stage (module doc)."""
+        yield from self.app.query_stream(question, conversation_id)
+
     def _record(self, seconds: float, count: int) -> None:
         with self._lat_lock:
             self._lat.append(seconds)
@@ -125,8 +139,7 @@ class RagAPI:
 
     def _handle(self, method: str, path: str, body: Dict[str, Any]) -> Tuple[int, Dict[str, Any]]:
         if method == "GET" and path == "/health":
-            with self._lock:  # its embedding runs on the device too
-                health = self.app.check_health()
+            health = self.app.check_health()  # its embed takes the device lock
             return (200 if health.get("ok") else 503), health
         if method == "GET" and path == "/stats":
             stats = dict(self.app.get_stats())
@@ -138,18 +151,11 @@ class RagAPI:
             return 200, stats
         if method == "POST" and path == "/search":
             return self._search(body)
-        if method == "POST" and path in ("/query", "/query/stream"):
+        if method == "POST" and path == "/query":
             question = body.get("question", "")
             if not question:
                 return 400, {"error": "missing 'question'"}
-            conversation_id = body.get("conversation_id", "")
-            if path == "/query/stream":
-                # the app raises until the agentic path is ported; the
-                # Server-Sent Events transport comes with it (ROADMAP A11)
-                self.app.query_stream(question, conversation_id)
-                return 501, {"error": "the /query/stream transport is not ported yet"}
-            with self._lock:
-                result = self.app.query(question, conversation_id=conversation_id)
+            result = self.app.query(question, conversation_id=body.get("conversation_id", ""))
             return 200, result.to_dict() | {"answer": result.answer}
         if method == "POST" and path == "/simple_query":
             question = body.get("question", "")
@@ -243,7 +249,40 @@ def make_server(app, host: str = "0.0.0.0", port: int = 8080) -> ThreadingHTTPSe
             self._respond("GET")
 
         def do_POST(self):  # noqa: N802
+            if (self.path.rstrip("/") or "/") == "/query/stream":
+                self._stream_query()
+                return
             self._respond("POST")
+
+        def _stream_query(self) -> None:
+            length = int(self.headers.get("Content-Length", 0) or 0)
+            try:
+                body = json.loads(self.rfile.read(length)) if length else {}
+            except json.JSONDecodeError:
+                body = None
+            question = body.get("question", "") if isinstance(body, dict) else ""
+            if not question:
+                data = json.dumps({"error": "missing 'question'"}).encode()
+                self.send_response(400)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            # an unbounded body: under HTTP/1.1 the client sees its end by
+            # the connection's close, so this response opts out of keep-alive
+            self.send_header("Connection", "close")
+            self.close_connection = True
+            self.end_headers()
+            try:
+                for event in api.stream_query(question, body.get("conversation_id", "")):
+                    self.wfile.write(f"data: {json.dumps(event, default=str)}\n\n".encode())
+                    self.wfile.flush()
+            except (BrokenPipeError, ConnectionResetError):
+                logger.info("stream client disconnected")
 
         def log_message(self, fmt, *args):  # route through logging
             logger.info("%s %s", self.address_string(), fmt % args)

@@ -1,10 +1,10 @@
-"""Logging setup with ANSI colors: `setup_logging`.
+"""Logging setup with ANSI colors, and the agents' correlation-id logger.
 
-The port's copy of `setup_logging` and `ColorFormatter` from
-`radiant_rag_tpu/utils/logging.py`: a stderr handler (colored when the
+The port's copy of `setup_logging`, `ColorFormatter` and `StructuredLogger`
+from `radiant_rag_tpu/utils/logging.py`: a stderr handler (colored when the
 terminal allows it: no NO_COLOR, a TTY, TERM not "dumb"), an optional file
-handler, and the chatty third-party loggers held at WARNING. The agents'
-`StructuredLogger` comes with the agents (ROADMAP queue A item 11).
+handler, the chatty third-party loggers held at WARNING, and a logger that
+prefixes a run's correlation id to every agent log line.
 """
 
 from __future__ import annotations
@@ -63,3 +63,26 @@ def setup_logging(level: str = "INFO", file: str = "", color: bool = True) -> No
 
     for name in _NOISY_LOGGERS:
         logging.getLogger(name).setLevel(logging.WARNING)
+
+
+class StructuredLogger:
+    """Logger adapter that prefixes a correlation id to every line."""
+
+    def __init__(self, name: str, correlation_id: str = "") -> None:
+        self._logger = logging.getLogger(name)
+        self.correlation_id = correlation_id
+
+    def _fmt(self, msg: str) -> str:
+        return f"[{self.correlation_id}] {msg}" if self.correlation_id else msg
+
+    def debug(self, msg: str, *args) -> None:
+        self._logger.debug(self._fmt(msg), *args)
+
+    def info(self, msg: str, *args) -> None:
+        self._logger.info(self._fmt(msg), *args)
+
+    def warning(self, msg: str, *args) -> None:
+        self._logger.warning(self._fmt(msg), *args)
+
+    def error(self, msg: str, *args) -> None:
+        self._logger.error(self._fmt(msg), *args)

@@ -1,6 +1,7 @@
 """Shared world of the app and server parity tests: both packages' apps
-over equal configs, equal embedder weights and the same documents, and the
-comparison of their hit lists (tolerance: tests/_torch_parity.py)."""
+over equal configs, equal embedder weights, the same mock LLM and the same
+documents, and the comparison of their hit lists (tolerance:
+tests/_torch_parity.py)."""
 
 import json
 
@@ -14,6 +15,8 @@ from radiant_rag_tpu.models.embedder import Embedder as JaxEmbedder
 from radiant_rag_tpu.models.registry import LocalNLPModels as JaxModels
 from radiant_rag_tpu_torch import config as tcfg
 from radiant_rag_tpu_torch.app import RadiantTPU
+from radiant_rag_tpu_torch.llm.backends import MockLLMBackend as TorchMock
+from radiant_rag_tpu_torch.llm.client import LLMClient as TorchClient
 from radiant_rag_tpu_torch.models.embedder import Embedder
 from radiant_rag_tpu_torch.models.registry import LocalNLPModels
 
@@ -21,6 +24,8 @@ from _torch_parity import assert_rows_match
 
 EMB = dict(preset="none", dim=32, num_layers=1, num_heads=2, hidden_dim=64, vocab_size=500,
            max_seq_len=32, batch_size=64, dtype="float32", checkpoint_dir="")
+# the cross-encoder's architecture (float32, the JAX weights carried across)
+CE = dict(vocab_size=500, hidden_size=32, num_layers=1, num_heads=2, intermediate_size=64)
 WORDS = ("solar panel energy light cell power wind turbine battery grid voltage current "
          "photon lens laser mirror crystal signal noise filter memory cache index query "
          "vector search batch device kernel thread score rank token").split()
@@ -38,26 +43,41 @@ def _sections(mod, tmp, **over):
         bm25=mod.BM25Config(index_path=str(tmp / "bm25.json.gz"), sketch_dim=128),
         retrieval=mod.RetrievalConfig(calibration_probes=32),
         server=mod.ServerConfig(max_batch=16, max_wait_ms=20.0),
+        cross_encoder=mod.CrossEncoderConfig(max_seq_len=64, batch_size=16),
     )
 
 
-def make_apps(tmp, **over):
-    """(JAX app, port app) over equal configs and equal embedder weights."""
+def make_apps(tmp, responder=None, **over):
+    """(JAX app, port app) over equal configs and equal embedder weights,
+    each with a mock LLM (`responder(messages)`, else the mock's "ok")."""
     import jax
+    import jax.numpy as jnp
+    import torch
 
-    from radiant_rag_tpu_torch.convert import bert_params_from_jax
+    from radiant_rag_tpu.models.bert import BertConfig as JaxBertConfig
+    from radiant_rag_tpu.models.cross_encoder import CrossEncoder as JaxCrossEncoder
+    from radiant_rag_tpu_torch.convert import bert_params_from_jax, cross_encoder_params_from_jax
+    from radiant_rag_tpu_torch.models.bert import BertConfig
+    from radiant_rag_tpu_torch.models.cross_encoder import CrossEncoder
 
-    jconf = jcfg.AppConfig(**_sections(jcfg, tmp / "j", **over),
-                           conversation=jcfg.ConversationConfig(data_dir=str(tmp / "j" / "c")),
-                           strategy_memory=jcfg.StrategyMemoryConfig(
-                               path=str(tmp / "j" / "sm.json.gz")))
-    tconf = tcfg.AppConfig(**_sections(tcfg, tmp / "t", **over))
+    jconf, tconf = (mod.AppConfig(**_sections(mod, tmp / key, **over),
+                                  conversation=mod.ConversationConfig(data_dir=str(tmp / key / "c")),
+                                  strategy_memory=mod.StrategyMemoryConfig(
+                                      path=str(tmp / key / "sm.json.gz")))
+                    for mod, key in ((jcfg, "j"), (tcfg, "t")))
     jemb = JaxEmbedder(jconf.embedding, seed=4)
     params = bert_params_from_jax(jax.tree.map(np.asarray, jemb.params))
     temb = Embedder(tconf.embedding, device="cpu", params=params)
-    japp = JaxApp(config=jconf, llm=LLMClient(backend=MockLLMBackend()),
-                  local_models=JaxModels(jconf, embedder=jemb))
-    tapp_ = RadiantTPU(tconf, local_models=LocalNLPModels(tconf, embedder=temb), device="cpu")
+    jce = JaxCrossEncoder(jconf.cross_encoder, bert_cfg=JaxBertConfig(dtype=jnp.float32, **CE),
+                          seed=3)
+    tce = CrossEncoder(tconf.cross_encoder, bert_cfg=BertConfig(dtype=torch.float32, **CE),
+                       params=cross_encoder_params_from_jax(jax.tree.map(np.asarray, jce.params)),
+                       device="cpu")
+    japp = JaxApp(config=jconf, llm=LLMClient(backend=MockLLMBackend(responder=responder)),
+                  local_models=JaxModels(jconf, embedder=jemb, cross_encoder=jce))
+    tapp_ = RadiantTPU(tconf, llm=TorchClient(backend=TorchMock(responder=responder)),
+                       local_models=LocalNLPModels(tconf, embedder=temb, cross_encoder=tce),
+                       device="cpu")
     return japp, tapp_
 
 

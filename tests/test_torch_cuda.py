@@ -440,3 +440,73 @@ def test_search_batch_async_from_two_threads_equals_search_batch(card, tmp_path)
     for i in range(8):
         assert [[(d.doc_id, s) for d, s in h] for h in got[i]] == \
             [[(d.doc_id, s) for d, s in h] for h in ref[i]], i
+
+
+def test_agentic_run_on_card_equals_cpu(card, tmp_path):
+    """RAGOrchestrator.run over the same corpus and float32 weights on the
+    card and on the CPU, driven by the same scripted mock LLM (4 effective
+    queries, one search_rows of B = 4): the same fused doc ids in the same
+    order (up to swaps of docs tied within tests/_torch_parity.py's
+    tolerance), the same plan and answer; the run launches the scan."""
+    import json
+
+    from radiant_rag_tpu_torch.config import config_from_dict
+    from radiant_rag_tpu_torch.index.bm25 import PersistentBM25Index
+    from radiant_rag_tpu_torch.index.store import TpuVectorStore
+    from radiant_rag_tpu_torch.llm.backends import MockLLMBackend
+    from radiant_rag_tpu_torch.llm.client import LLMClient
+    from radiant_rag_tpu_torch.models.registry import LocalNLPModels
+    from radiant_rag_tpu_torch.orchestrator import RAGOrchestrator
+
+    from _torch_parity import assert_rows_match
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(17)
+    texts = [" ".join(f"w{t}" for t in row) for row in rng.zipf(1.3, (800, 30)) % 3000]
+    plan = {"use_decomposition": True, "use_rewrite": False, "use_expansion": True,
+            "retrieval_mode": "hybrid"}
+
+    def responder(messages):
+        last = messages[-1]["content"]
+        if "query-planning agent" in last:
+            return json.dumps(plan)
+        if "Decompose the question" in last:
+            return json.dumps([" ".join(texts[3].split()[:5]), " ".join(texts[9].split()[:5])])
+        if "alternative phrasings" in last:
+            return json.dumps([" ".join(texts[i].split()[2:7]) for i in (3, 9)])
+        if "Evaluate this answer" in last:
+            return json.dumps({"confidence": 0.9, "should_retry": False})
+        return "[]" if "JSON" in last else "An answer [DOC 1]."
+
+    emb_c, ce_c = _small_models("cpu", "float32")
+    vecs = emb_c.embed(texts)
+    out = []
+    for dev in ("cpu", card):
+        emb, ce = ((emb_c, ce_c) if dev == "cpu" else
+                   _small_models(dev, "float32", (_state(emb_c.model), _state(ce_c.model))))
+        cfg = config_from_dict({
+            "index": {"dim": 64}, "bm25": {"sketch_dim": 256},
+            "retrieval": {"fusion_weighting": "equal"},
+            "rerank": {"auto_disable_probes": 0},
+            "context_eval": {"min_mean_score": -1.0},
+            "strategy_memory": {"enabled": False}})
+        store = TpuVectorStore(dim=64, index_config=cfg.index, device=dev)
+        store.upsert_batch([(t, {"source": f"doc{i}"}, vecs[i]) for i, t in enumerate(texts)])
+        bm = PersistentBM25Index(store, path=str(tmp_path / f"{dev}.json.gz"), sketch_dim=256,
+                                 device=dev)
+        bm.build_from_store()
+        orch = RAGOrchestrator(cfg, store, bm, LocalNLPModels(embedder=emb, cross_encoder=ce),
+                               LLMClient(backend=MockLLMBackend(responder=responder)))
+        launches = ck.int8_scan_topk.launches
+        res = orch.run("Tell me everything these two documents say about their own words")
+        out.append(res)
+        if dev != "cpu":
+            assert ck.int8_scan_topk.launches > launches
+    ref, got = out
+    assert got.success and got.plan == ref.plan and got.answer == ref.answer
+    assert got.effective_queries == ref.effective_queries and len(got.effective_queries) == 4
+    ids = {}
+    rows = [[ids.setdefault(d.doc_id, len(ids)) for d, _ in r.fused_docs] for r in (ref, got)]
+    scores = [[s for _, s in r.fused_docs] for r in (ref, got)]
+    assert len(rows[0]) == len(rows[1]) > 0
+    assert_rows_match([rows[0]], [scores[0]], [rows[1]], [scores[1]], "agentic fused docs")

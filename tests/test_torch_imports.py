@@ -25,7 +25,13 @@ new = {"config", "index.base", "index.doc", "index.docstore", "index.factory",
        "models.device_rerank", "models.embedder", "models.hf_loading", "models.pretrained",
        "models.registry", "models.tokenizer", "utils.cache", "app", "server", "orchestrator",
        "__main__", "utils.batching", "utils.metrics", "utils.logging", "parallel.data",
-       "ingestion.processor", "ingestion.json_parser", "ingestion.code_chunker"}
+       "ingestion.processor", "ingestion.json_parser", "ingestion.code_chunker",
+       "llm", "llm.json_parser", "llm.backends", "llm.client", "agents", "agents.base",
+       "agents.base_agent", "agents.retrieval", "agents.fusion", "agents.automerge",
+       "agents.rerank", "agents.planning", "agents.strategy_memory", "agents.query_processing",
+       "agents.context_eval", "agents.summarization", "agents.synthesis", "agents.critic",
+       "agents.multihop", "agents.fact_verification", "agents.citation", "agents.tools",
+       "utils.conversation"}
 assert {"radiant_rag_tpu_torch." + m for m in new} <= set(names), names
 import torch
 assert not torch.cuda.is_available()
@@ -98,8 +104,8 @@ def test_load_config_raises_instead_of_serving_defaults(tmp_path, caplog):
 
 
 def test_quality_preset_dict_still_parses():
-    """The quality preset sets rerank.* (and other sections the port does
-    not read yet): the port parses it without reading the rerank section."""
+    """The quality preset sets rerank, agentic, context_eval and pipeline
+    fields: the port reads them all (none is dropped)."""
     import importlib.util
 
     from radiant_rag_tpu_torch.config import config_from_dict
@@ -109,7 +115,9 @@ def test_quality_preset_dict_still_parses():
     spec.loader.exec_module(smoke)
     cfg = config_from_dict(smoke.QUALITY_OPTIMIZED_PRESET)
     assert smoke.QUALITY_OPTIMIZED_PRESET["rerank"] == {"top_k": 10, "candidate_multiplier": 6}
-    assert not hasattr(cfg, "rerank")
+    assert (cfg.rerank.top_k, cfg.rerank.candidate_multiplier) == (10, 6)
+    assert cfg.agentic.max_critic_retries == 3 and cfg.context_eval.use_llm
+    assert cfg.pipeline.use_expansion and cfg.pipeline.use_multihop
     assert cfg.retrieval.fused_top_k == 30 and cfg.embedding.dim == 128
 
 
@@ -200,17 +208,80 @@ def test_sections_and_env_overrides_resolve_as_jax_load_config(data, env, tmp_pa
 
 def test_fields_this_slice_reads_no_longer_raise():
     """fusion_weighting, the calibration_* fields and the query cache's are
-    read by the serving entry point now; the agents' fields still raise."""
+    read by the serving entry point; search_scope and retrieval_mode by the
+    agentic path."""
     from radiant_rag_tpu_torch.config import config_from_dict
 
     cfg = config_from_dict({
         "retrieval": {"fusion_weighting": "equal", "calibration_probes": 64,
-                      "calibration_paraphrase_fraction": 0.3, "calibration_seeds": 1},
+                      "calibration_paraphrase_fraction": 0.3, "calibration_seeds": 1,
+                      "search_scope": "all", "retrieval_mode": "bm25"},
         "cache": {"query_cache_size": 10, "query_cache_ttl_s": 60}})
     r = cfg.retrieval
     assert (r.fusion_weighting, r.calibration_probes, r.calibration_paraphrase_fraction,
-            r.calibration_seeds) == ("equal", 64, 0.3, 1)
+            r.calibration_seeds, r.search_scope, r.retrieval_mode) == \
+        ("equal", 64, 0.3, 1, "all", "bm25")
     assert (cfg.cache.query_cache_size, cfg.cache.query_cache_ttl_s) == (10, 60.0)
-    for key, value in (("search_scope", "all"), ("retrieval_mode", "bm25")):
-        with pytest.raises(NotImplementedError, match="queue A item 11"):
-            config_from_dict({"retrieval": {key: value}})
+
+
+@pytest.mark.parametrize("name", ["config.example.yaml", "config.quality-optimized.example.yaml",
+                                  "config.memory-optimized.example.yaml"])
+def test_example_configs_parse_equal_to_jax_on_every_section(name, monkeypatch):
+    """No section is dropped: every section of the example files parses
+    as the JAX package's load_config parses it, field for field (the quality
+    preset's rerank, agentic, context_eval and pipeline included)."""
+    import dataclasses
+
+    yaml = pytest.importorskip("yaml")
+    from radiant_rag_tpu import config as jcfg
+    from radiant_rag_tpu_torch import config as tcfg
+
+    for key in list(os.environ):
+        if key.startswith("RADIANT_"):
+            monkeypatch.delenv(key)
+    data = yaml.safe_load((REPO / name).read_text())
+    ref, got = jcfg.load_config(str(REPO / name)), tcfg.config_from_dict(data)
+    assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(ref)]
+    assert len(dataclasses.fields(got)) == 33 and set(data) <= set(tcfg._SECTIONS)
+    for f in dataclasses.fields(got):
+        assert dataclasses.asdict(getattr(got, f.name)) == \
+            dataclasses.asdict(getattr(ref, f.name)), f.name
+    if name == "config.example.yaml":
+        assert set(data) == set(tcfg._SECTIONS) and got.mesh.data_axis == 1
+    if "quality" in name:
+        assert (got.rerank.top_k, got.agentic.max_critic_retries, got.context_eval.use_llm) == \
+            (10, 3, True)
+
+
+@pytest.mark.parametrize("section,key,value,reason", [
+    ("language", "enabled", True, "item 11 \\(rest\\)"),
+    ("pipeline", "use_web_search", True, "web search.*item 11 \\(rest\\)"),
+    ("web_search", "enabled", True, "web search"),
+    ("web_search", "trigger_keywords", "breaking", "web search"),
+    ("web_crawler", "max_depth", 3, "crawlers"),
+    ("github", "token", "secret", "crawlers"),
+    ("report", "default_format", "html", "reports \\(ui/\\)"),
+    ("mesh", "shard_corpus", True, "queue A item 12"),
+    ("mesh", "dtype_compute", "float32", "neither package"),
+    ("llm", "model_path", "/models/llama", "causal-LM weights"),
+    ("llm", "device", "cuda", "causal-LM weights"),
+    ("agentic", "simple_query_max_words", 6, "neither package"),
+    ("query", "max_rewrites", 1, "neither package"),
+])
+def test_agentic_fields_without_a_behaviour_raise(section, key, value, reason):
+    from radiant_rag_tpu_torch.config import config_from_dict
+
+    with pytest.raises(NotImplementedError, match=f"{section}.{key}.*{reason}"):
+        config_from_dict({section: {key: value}})
+
+
+def test_unknown_section_is_logged_not_served(caplog):
+    from radiant_rag_tpu_torch.config import config_from_dict
+
+    with caplog.at_level("WARNING"):
+        cfg = config_from_dict({"rerank": {"top_k": 3}, "reranker": {"top_k": 9}})
+    assert cfg.rerank.top_k == 3
+    assert "unknown sections ignored: ['reranker']" in caplog.text
+    cfg = config_from_dict({"web_search": {"blocked_domains": []},
+                            "llm": {"backend": "mock", "temperature": "0.5"}})
+    assert cfg.web_search.blocked_domains == () and cfg.llm.temperature == 0.5

@@ -22,6 +22,7 @@ from radiant_rag_tpu.utils.batching import RequestCoalescer as JaxCoalescer
 from radiant_rag_tpu_torch.server import RagAPI, make_server
 from radiant_rag_tpu_torch.utils.batching import RequestCoalescer
 
+from _torch_agentic_world import Responder, assert_runs_match
 from _torch_app_world import QUERIES, assert_hits_match, make_apps, write_docs
 
 COALESCERS = {"jax": JaxCoalescer, "torch": RequestCoalescer}
@@ -93,7 +94,7 @@ def test_search_matches_jax(served, mode):
 def test_http_round_trip(served):
     port = served["port"]
     status, body = _req(port, "GET", "/health")
-    assert status == 200 and body["ok"] and body["llm"] is False
+    assert status == 200 and body["ok"] and body["llm"] is True  # the mock LLM answers
     status, body = _req(port, "POST", "/search",
                         {"query": "laser light crystal", "mode": "bm25", "top_k": 3})
     assert status == 200 and body["hits"] and "laser" in body["hits"][0]["content"].lower()
@@ -124,17 +125,13 @@ def test_error_paths_match_jax(served):
 
 
 @pytest.mark.parametrize("method,path,body", [
-    ("POST", "/query", {"question": "what do lasers emit?"}),
-    ("POST", "/query/stream", {"question": "what do lasers emit?"}),
-    ("POST", "/simple_query", {"question": "what do lasers emit?"}),
     ("POST", "/ingest/urls", {"urls": ["http://localhost/"]}),
     ("POST", "/ingest/github", {"url": "https://localhost/repo"}),
-    ("POST", "/conversations", {}),
 ])
 def test_deferred_routes_answer_500_with_the_reason(served, method, path, body):
     status, out = served["api"]["t"].handle(method, path, body)
     assert status == 500 and out["error"].startswith("NotImplementedError")
-    assert "ROADMAP queue A item 11" in out["error"]
+    assert "ROADMAP queue A item 11 (rest)" in out["error"]
 
 
 def test_handler_exception_to_500(served):
@@ -310,3 +307,147 @@ def test_stats_search_latency_percentiles(served):
     lat = body["search_latency_ms"]
     assert lat["count"] >= 3 and lat["window"] >= 3
     assert 0 <= lat["p50"] <= lat["p90"] <= lat["p99"]
+
+
+# ---------------------------------------------------------------- the agentic routes
+QUESTION = "Explain how the laser mirror and crystal turn photon light into a signal"
+
+
+@pytest.fixture(scope="module")
+def qserved(tmp_path_factory):
+    """Both packages' APIs over apps with the same corpus (no test changes
+    it) and the scripted LLM, and the port's real server."""
+    tmp = tmp_path_factory.mktemp("qsrv")
+    docs = write_docs(tmp / "docs", n_files=8)
+    japp, tapp = make_apps(tmp, responder=Responder())
+    japp.ingest_documents([str(docs)])
+    tapp.ingest_documents([str(docs)])
+    server = make_server(tapp, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    apis = {"j": JaxRagAPI(japp, coalesce=False), "t": RagAPI(tapp, coalesce=False)}
+    yield {"j": japp, "t": tapp, "port": server.server_address[1], "api": apis}
+    server.shutdown()
+    server.server_close()
+    server.api.close()
+    thread.join(timeout=10)
+
+
+class _Result:
+    """A /query body as the fields assert_runs_match reads."""
+
+    def __init__(self, body):
+        self.__dict__.update(body)
+
+
+def test_query_route_matches_jax(qserved):
+    (js, jb), (ts, tb) = (qserved["api"][k].handle("POST", "/query", {"question": QUESTION})
+                          for k in "jt")
+    assert js == ts == 200 and tb["success"] and not tb["degraded"]
+    for key in ("answer", "plan", "effective_queries", "retry_count", "confidence",
+                "low_confidence", "num_docs", "fact_verification", "degraded"):
+        assert tb[key] == jb[key], key
+    assert {k: v for k, v in tb["citations"].items() if k != "audit_id"} == \
+        {k: v for k, v in jb["citations"].items() if k != "audit_id"}
+    assert set(tb) == set(jb)
+    (js, jb), (ts, tb) = (qserved["api"][k].handle("POST", "/simple_query",
+                                                   {"question": "laser mirror"}) for k in "jt")
+    assert js == ts == 200 and tb == jb
+
+
+def test_conversations_route(qserved):
+    port = qserved["port"]
+    status, body = _req(port, "POST", "/conversations", {})
+    assert status == 200 and len(body["conversation_id"]) == 16
+    cid = body["conversation_id"]
+    first = _req(port, "POST", "/query", {"question": QUESTION, "conversation_id": cid})[1]
+    t = qserved["t"]
+    n = len(t.llm.backend.calls)
+    second = _req(port, "POST", "/query", {"question": "And how does the lens filter the noise "
+                                                       "from that signal afterwards?",
+                                           "conversation_id": cid})[1]
+    synth = [c for c in t.llm.backend.calls[n:] if c[-1]["content"].startswith("Context:")][0]
+    assert synth[1:3] == [{"role": "user", "content": QUESTION},
+                          {"role": "assistant", "content": first["answer"]}]
+    assert second["success"] and [tt.query for tt in t.conversations.get(cid).turns] == \
+        [QUESTION, second["query"]]
+
+
+def _sse(port, body):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/query/stream",
+                                 data=json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        assert resp.headers["Content-Type"] == "text/event-stream"
+        assert resp.headers["Connection"] == "close"
+        raw = resp.read().decode()
+    assert raw.endswith("\n\n")
+    return [json.loads(chunk[len("data: "):]) for chunk in raw.split("\n\n") if chunk]
+
+
+def test_query_stream_route_is_server_sent_events(qserved):
+    events = _sse(qserved["port"], {"question": QUESTION + " now"})
+    kinds = [e["event"] for e in events]
+    assert kinds[0] == "step_start" and kinds[-1] == "result" and kinds.count("result") == 1
+    assert "token" in kinds and "error" not in kinds
+    starts = [e["step"] for e in events if e["event"] == "step_start"]
+    assert starts == [e["step"] for e in events if e["event"] == "step_end"]
+    assert {"planning", "retrieval", "post_retrieval", "generation", "critique"} <= set(starts)
+    assert events[-1]["success"] and events[-1]["answer"]
+    assert _req(qserved["port"], "POST", "/query/stream", {})[0] == 400
+    # the JAX RagAPI.handle has no /query/stream (its SSE lives in the handler)
+    assert qserved["api"]["t"].handle("POST", "/query/stream", {"question": "x"})[0] == \
+        qserved["api"]["j"].handle("POST", "/query/stream", {"question": "x"})[0] == 404
+
+
+def test_query_routes_report_a_device_failure(qserved, monkeypatch):
+    """A failing embed on the card: /query answers 500 with the reason and
+    /query/stream ends in an error event; nothing degrades silently."""
+    t = qserved["t"]
+
+    def broken(*a, **kw):
+        raise RuntimeError("embedder lost")
+
+    monkeypatch.setattr(t.local_models, "embed_device", broken)
+    monkeypatch.setattr(t.local_models, "embed", broken)
+    question = "Explain how a kernel thread scores every token in a batch of queries"
+    status, body = _req(qserved["port"], "POST", "/query", {"question": question})
+    assert status == 500 and body["error"].startswith("DeviceStageError")
+    assert "embedder lost" in body["error"]
+    events = _sse(qserved["port"], {"question": question + " again"})
+    assert events[-1]["event"] == "error" and "embedder lost" in events[-1]["error"]
+    assert "result" not in [e["event"] for e in events]
+
+
+def test_query_takes_the_device_lock_per_stage(qserved):
+    """While a /query waits on a slow LLM, /search runs: the run holds the
+    device lock only inside its device stages."""
+    t = qserved["t"]
+    api = RagAPI(t, coalesce=False)
+    assert api._lock is t.device_lock is t.orchestrator.device_stage.lock
+    gate, entered = threading.Event(), threading.Event()
+    backend = t.llm.backend
+    responder = backend.responder
+
+    def slow(messages):
+        if messages[-1]["content"].startswith("Context:"):
+            entered.set()
+            assert gate.wait(30)
+        return responder(messages)
+
+    backend.responder = slow
+    try:
+        worker = threading.Thread(target=lambda: api.handle(
+            "POST", "/query", {"question": "Explain how memory cache and the index serve "
+                                           "every vector query search"}))
+        worker.start()
+        assert entered.wait(30)
+        assert t.device_lock.acquire(blocking=False)  # no other thread holds it
+        t.device_lock.release()
+        status, body = api.handle("POST", "/search", {"query": "laser", "mode": "hybrid"})
+        assert status == 200 and body["hits"]
+    finally:
+        gate.set()
+        worker.join(30)
+        backend.responder = responder
+        api.close()

@@ -298,8 +298,8 @@ def test_chip_smoke_preset_literal_is_the_shipped_file():
     ("index", "graph_degree", 32, "queue A item 10"),
     ("index", "docstore_cache_docs", 10, "queue A item 10"),
     ("quantization", "int8_on_disk_only", "true", "neither package"),
-    ("retrieval", "search_scope", "all", "queue A item 11"),
-    ("retrieval", "retrieval_mode", "dense", "queue A item 11"),
+    ("language", "enabled", "true", "queue A item 11"),
+    ("pipeline", "use_web_search", "yes", "queue A item 11"),
     ("ingestion", "use_intelligent_chunking", "true", "neither package"),
     ("server", "port", 9000, "neither package"),
     ("metrics", "otel_enabled", True, "queue A item 11"),

@@ -61,6 +61,18 @@ seed: 1M docs of clustered 384-d vectors and zipfian 48-token texts):
            per-phase ms, the device stages' ms, the cross-encoder's
            TFLOP/s, the idle share of 8 profiled runs, the launches by
            shape, and kernel rows for the shapes it adds.
+  phase 9  training over phase 7's app: `app.train` (40 steps at batch
+           256 with 2 BM25-mined hard negatives: 1,024 sequences a step,
+           lr 1e-4, warmup + cosine, a checkpoint) and
+           `train_cross_encoder` at the cross-encoder's width (20 steps of
+           16 groups of 1 positive + 2 mined + 1 random negative) over the
+           corpus texts and the app's BM25 index; step ms, tokens/s,
+           TFLOP/s and the bf16 peak share, mining and sampler ms, the idle
+           share of 4 profiled iterations, peak memory; checks: a bf16
+           card step against a float32 CPU step, a repeated batch's
+           falling loss, the checkpoint restored bit for bit by a fresh
+           Embedder that embeds as the swapped encoder, the calibration
+           run again, and kernel rows at the mining's shapes.
 
 Prints the card's name and power limit, the phases' numbers, one
 {"kernels": [...]} JSON line, and as its last line
@@ -583,8 +595,18 @@ def profile_batch(fn, what: str):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0]
+    return device_report(prof, wall_us, what)
+
+
+def device_report(prof, wall_us: float, what: str):
+    """Device busy time, idle share and the top kernels of a finished
+    torch.profiler window of `wall_us` host microseconds; returns the idle
+    share (None without device events)."""
+    import torch
+
+    kernels = [e for e in prof.events()  # kernels and copies, not annotated ranges
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         log(f"profile ({what}): no device events (device time not measured)")
         return None
@@ -977,14 +999,21 @@ def phase_quality(ck, run, searcher, queries, qtexts, exact0):
             f"{ms:.3f} ms")
 
 
-def ce_flops(cfg, pairs: int, seq: int) -> float:
-    """Operations of one cross-encoder forward over `pairs` packed pairs of
-    `seq` tokens (padded pairs count as work done): 2 x the Dense weights
-    per token and layer, 4 x seq x hidden per token and layer for the
-    attention's two products, and the pooler and classifier on [CLS]."""
+def encoder_flops(cfg, seqs: int, seq: int) -> float:
+    """Operations of one BERT encoder forward over `seqs` sequences of
+    `seq` tokens (padded tokens count as work done): 2 x the Dense weights
+    per token and layer, and 4 x seq x hidden per token and layer for the
+    attention's two products."""
     h, ff = cfg.hidden_size, cfg.intermediate_size
     per_token_layer = 2 * (4 * h * h + 2 * h * ff) + 4 * seq * h
-    return cfg.num_layers * pairs * seq * per_token_layer + 2 * pairs * (h * h + h)
+    return cfg.num_layers * seqs * seq * per_token_layer
+
+
+def ce_flops(cfg, pairs: int, seq: int) -> float:
+    """One cross-encoder forward: the encoder, and the pooler and classifier
+    on [CLS]."""
+    h = cfg.hidden_size
+    return encoder_flops(cfg, pairs, seq) + 2 * pairs * (h * h + h)
 
 
 def host_packed(rr, q_texts, rows, texts):
@@ -1793,6 +1822,9 @@ def phase_serving(ck, main_path, vecs, texts, smi, known_keys):
     t8 = time.perf_counter()
     agentic_keys = phase_agentic(ck, main_path, app, llm, questions, port, smi)
     log(f"phase 8: {time.perf_counter() - t8:.1f} s")
+    t9 = time.perf_counter()
+    train_keys, mining_q = phase_training(ck, main_path, app, texts, smi, d)
+    log(f"phase 9: {time.perf_counter() - t9:.1f} s")
     server.shutdown()
     server.server_close()
     server.api.close()
@@ -1801,7 +1833,10 @@ def phase_serving(ck, main_path, vecs, texts, smi, known_keys):
 
     rows = serving_rows(ck, eng, bm, qdev2k, qt2k)
     known = set(known_keys) | {row["_key"] for row in rows}
-    rows += agentic_rows(ck, eng, bm, qdev2k, qt2k, sorted(agentic_keys - known))
+    rows += path_rows(ck, eng, bm, qdev2k, qt2k, sorted(agentic_keys - known), "agentic path")
+    known |= {row["_key"] for row in rows}
+    rows += path_rows(ck, eng, bm, qdev2k, mining_q, sorted(train_keys - known),
+                      "training's BM25 mining")
     log("phase 7 summary: " + json.dumps({
         "device": smi, "corpus_rows": eng.count, "upsert_s": t_upsert, "models_s": t_models,
         "app_with_bm25_build_s": t_bm, "ingest_s": t_ing, "bm25_tables_after_ingest_s": t_tables, "ingest_chunks_per_s": INGEST_CHUNKS / t_ing,
@@ -1912,12 +1947,13 @@ class ScriptedLLM:
         return "ok"
 
 
-def agentic_rows(ck, eng, bm, qdev, qtexts_, keys):
-    """Kernel rows at the (kernel, D or W, k, B) shapes phase 8 launched
-    that no earlier row measured: the dense scans of the dense agent and of
-    the multihop hops (host queries, kc = 4 x top_k), the sketch scan, and
-    the rerank calibration's binary stage 1 at B = 64. Inputs as
-    serving_rows takes them."""
+def path_rows(ck, eng, bm, qdev, qtexts_, keys, path):
+    """Kernel rows at the (kernel, D or W, k, B) shapes a later phase
+    launched that no earlier row measured. Phase 8: the dense scans of the
+    dense agent and of the multihop hops (host queries, kc = 4 x top_k),
+    the sketch scan, and the rerank calibration's binary stage 1 at B = 64.
+    Phase 9: the training's BM25 mining, the sketch scan at kc = 16 over
+    its pseudo-queries (`qtexts_`). Inputs as serving_rows takes them."""
     import torch
 
     from radiant_rag_tpu_torch.ops import quantize as qz
@@ -1929,7 +1965,7 @@ def agentic_rows(ck, eng, bm, qdev, qtexts_, keys):
     mask = eng.valid.clone()
     rows = []
     for name, width, k, b in keys:
-        label = f"k={k} B={b} (agentic path)"
+        label = f"k={k} B={b} ({path})"
         if name == "int8_scan_topk" and width == DIM:
             rows.append(scan_rows(ck, f"dense D={DIM} {label}", eng.i8, qi[:b].contiguous(),
                                   mask, k))
@@ -1941,8 +1977,8 @@ def agentic_rows(ck, eng, bm, qdev, qtexts_, keys):
                                          qwords[:b].contiguous(), mask, k,
                                          ck.sign_matrix(eng.codes)))
         else:
-            raise AssertionError(f"phase 8 launched {name} at {(width, k, b)}, which no row "
-                                 "covers")
+            raise AssertionError(f"the {path} launched {name} at {(width, k, b)}, which no "
+                                 "row covers")
         if rows[-1]["_key"] != (name, width, k, b):
             raise AssertionError(f"row key {rows[-1]['_key']} != launch key {(name, width, k, b)}")
     return rows
@@ -2404,6 +2440,342 @@ def phase_agentic(ck, main_path, app, llm, questions, port, smi):
         "http_search_requests_per_s": len(search_lat) / wall_c,
         "stream_ms": t_stream * 1e3}))
     return launched
+
+
+# phase 9: embedder and cross-encoder training on phase 7's app
+TRAIN_STEPS = 40  # app.train: batch 256 with 2 hard negatives, lr 1e-4, warmup + cosine
+TRAIN_BATCH = 256
+TRAIN_HARD = 2
+TRAIN_LR = 1e-4
+CE_STEPS = 20  # train_cross_encoder: 16 groups of 1 + 2 hard + 1 random
+CE_BATCH = 64
+PROFILED_STEPS = 4
+PROFILE_FROM = 10  # the first profiled step (the allocator has grown by then)
+CHECK_BATCH = 32  # queries of the bf16-vs-float32 step check (x 4 sequences each)
+# One AdamW step at bf16 on the card against float32 on the CPU, from the
+# same init and batch: the loss within 5e-3, and the update of the first
+# and of the last layer (p1 - p0 over the layer's tensors, lr x ~sign(grad)
+# after one Adam step) at cosine >= 0.95 / 0.82 to the CPU's. That is 3x
+# the worst gap of bf16 against float32 on the CPU at this width over 8
+# sampled batches of this size (PERF.md, PR 10): loss 1.7e-3, 1 - cosine
+# 0.016 / 0.059. The card's bf16 measured within the same spread (loss
+# <= 1.5e-3, cosine >= 0.984 / 0.934; cuBLAS's reduced-precision bf16
+# reductions on or off gave equal results). The CPU's own bf16 step runs
+# and is logged beside it each time.
+TRAIN_LOSS_ATOL, TRAIN_MIN_UPDATE_COS = 5e-3, (0.95, 0.82)
+
+
+ID_KEYS = ("ids", "q_ids", "d_ids", "n_ids")  # the samplers' token arrays
+MASK_KEYS = ("mask", "q_mask", "d_mask", "n_mask")
+
+
+def train_flops(cfg, batch) -> float:
+    """Operations of one training step: 3 x the encoder forward over every
+    token array of the batch (the backward takes 2 x the forward; the
+    losses, the pooler and the optimizer are left out)."""
+    return 3 * sum(encoder_flops(cfg, *batch[k].shape) for k in ID_KEYS if k in batch)
+
+
+class TrainProbe:
+    """Instruments one trainer run without changing it: CUDA events around
+    each step (the device's step time; no synchronization added), the
+    sampler's next_batch and the BM25 mining searches on the host clock,
+    the tokens and operations of each batch, the first step's metrics, and
+    a torch.profiler window over PROFILED_STEPS whole iterations."""
+
+    def __init__(self, builder, sampler_cls, bm, cfg):
+        from radiant_rag_tpu_torch.parallel import train as train_mod
+
+        self.train_mod, self.builder, self.sampler_cls, self.bm, self.cfg = (
+            train_mod, builder, sampler_cls, bm, cfg)
+        self.events, self.starts, self.flops, self.padded, self.real = [], [], 0.0, 0, 0
+        self.host_ms, self.mine_ms, self.mine_span, self.mine_queries = [], [], [], []
+        self.first, self.sampler, self.idle, self.prof_wall = None, None, None, None
+        self._prof = None
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        orig_builder = getattr(self.train_mod, self.builder)
+        orig_next = self.sampler_cls.next_batch
+        orig_search = self.bm.search_rows_batch
+        probe = self
+
+        def builder(*args, **kwargs):
+            step, place = orig_builder(*args, **kwargs)
+
+            def timed(state, batch):
+                i = len(probe.events)
+                if i == PROFILE_FROM:
+                    torch.cuda.synchronize()
+                    # device activity only: the CPU op records would slow the
+                    # host, whose share of the iteration is what idle measures
+                    probe._prof = profile(activities=[ProfilerActivity.CUDA])
+                    probe._prof.__enter__()
+                    probe._t_prof = time.perf_counter()
+                elif i == PROFILE_FROM + PROFILED_STEPS:
+                    torch.cuda.synchronize()
+                    probe.prof_wall = time.perf_counter() - probe._t_prof
+                    probe._prof.__exit__(None, None, None)
+                    probe.idle = device_report(probe._prof, probe.prof_wall * 1e6,
+                                               f"phase 9 {probe.builder}: {PROFILED_STEPS} "
+                                               "whole training iterations")
+                probe.starts.append(time.perf_counter())
+                e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                e0.record()
+                state, metrics = step(state, batch)
+                e1.record()
+                probe.events.append((e0, e1))
+                if i == 0:  # one fetch, at the first step
+                    probe.first = {k: float(v) for k, v in metrics.items()}
+                return state, metrics
+
+            return timed, place
+
+        def next_batch(sampler):
+            probe.sampler = sampler
+            t = time.perf_counter()
+            out = orig_next(sampler)
+            probe.host_ms.append((time.perf_counter() - t) * 1e3)
+            probe.padded += sum(out[k].size for k in ID_KEYS if k in out)
+            probe.real += int(sum(out[k].sum() for k in MASK_KEYS if k in out))
+            probe.flops += train_flops(probe.cfg, out)
+            return out
+
+        def search_rows_batch(queries, *args, **kwargs):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t = time.perf_counter()
+            e0.record()
+            out = orig_search(queries, *args, **kwargs)  # fetched: synchronized
+            e1.record()
+            probe.mine_ms.append((time.perf_counter() - t) * 1e3)
+            probe.mine_span.append((e0, e1))
+            probe.mine_queries = list(queries)
+            return out
+
+        setattr(self.train_mod, self.builder, builder)
+        self.sampler_cls.next_batch = next_batch
+        self.bm.search_rows_batch = search_rows_batch
+        self._undo = lambda: (setattr(self.train_mod, self.builder, orig_builder),
+                              setattr(self.sampler_cls, "next_batch", orig_next),
+                              self.bm.__dict__.pop("search_rows_batch"))
+        return self
+
+    def __exit__(self, *exc):
+        self._undo()
+        return False
+
+    def summary(self, label, wall_s, last, peak_bytes, smi):
+        step_ms = [a.elapsed_time(b) for a, b in self.events]
+        n = len(step_ms)
+        dev_s = sum(step_ms) / 1e3
+        tflops = self.flops / dev_s / 1e12
+        # the sampler's own host work: next_batch less its mining search,
+        # whose wall time includes waiting for the step queued before it
+        host = [h - m for h, m in zip(self.host_ms, self.mine_ms)] if self.mine_ms else \
+            self.host_ms
+        span = [a.elapsed_time(b) for a, b in self.mine_span]
+        # host wall from one step's start to the next, steady state: after
+        # the first two steps (allocator growth), outside the profiled window
+        gaps = np.diff(self.starts)
+        steady = [g * 1e3 for i, g in enumerate(gaps, 1)
+                  if i > 2 and not PROFILE_FROM < i <= PROFILE_FROM + PROFILED_STEPS]
+        out = {"device": smi, "steps": n, "wall_s": wall_s,
+               "step_ms_p50": _pct(step_ms, 0.5), "step_ms_p99": _pct(step_ms, 0.99),
+               "iteration_ms": wall_s / n * 1e3,
+               "steady_iteration_ms_p50": _pct(steady, 0.5) if steady else None,
+               "padded_tokens_per_step": self.padded / n, "real_tokens_per_step": self.real / n,
+               "tokens_per_s": self.padded / wall_s, "real_tokens_per_s": self.real / wall_s,
+               "tflop_per_step": self.flops / n / 1e12, "tflops_device": tflops,
+               "bf16_peak_share": tflops * 1e12 / BF16_FLOPS_PER_S,
+               "tflops_wall": self.flops / wall_s / 1e12,
+               "mining_wall_ms_per_step": float(np.mean(self.mine_ms)) if span else 0.0,
+               "mining_device_span_ms_p50": _pct(span, 0.5) if span else 0.0,
+               "sampler_host_ms_per_step": float(np.mean(host)),
+               "idle_share": self.idle, "profiled_window_s": self.prof_wall,
+               "peak_gib": peak_bytes / 2**30, "first": self.first, "last": last}
+        log(f"phase 9 {label}: {json.dumps(out)}")
+        return out
+
+
+def train_step_check(sampler, ckpt_cfg, card):
+    """One AdamW step at bf16 on the card against float32 on the CPU from
+    the same seeded init and the same sampled batch (CHECK_BATCH queries,
+    their documents and mined negatives): the loss and the update of the
+    first and last layer within the stated tolerance. Then the loss on
+    that one batch, repeated, falls over 10 steps on the card."""
+    import torch
+
+    from radiant_rag_tpu_torch.models.bert import BertConfig, init_params
+    from radiant_rag_tpu_torch.parallel.train import contrastive_train_step, make_train_state
+
+    cfg = BertConfig(vocab_size=ckpt_cfg.vocab_size, hidden_size=ckpt_cfg.dim,
+                     num_layers=ckpt_cfg.num_layers, num_heads=ckpt_cfg.num_heads,
+                     intermediate_size=ckpt_cfg.hidden_dim, dtype=torch.float32)
+    init = init_params(cfg, seed=SEED)
+    saved = sampler.batch_size
+    sampler.batch_size = CHECK_BATCH
+    batch = sampler.next_batch()
+    sampler.batch_size = saved
+    runs = {}
+    for label, dev, dtype in (("card bf16", card, torch.bfloat16),
+                              ("cpu float32", "cpu", torch.float32),
+                              ("cpu bf16", "cpu", torch.bfloat16)):
+        state = make_train_state(dataclasses.replace(cfg, dtype=dtype), TRAIN_LR,
+                                 init_params_tree=init, device=dev)
+        step, place = contrastive_train_step(dev)
+        t = time.perf_counter()
+        state, met = step(state, place(batch))
+        loss = float(met["loss"])
+        runs[label] = (state, step, place, loss, time.perf_counter() - t)
+    card, cpu = runs["card bf16"], runs["cpu float32"]
+
+    def update_cos(run, layer):
+        """Cosine of the layer's whole update to the CPU float32 one; the
+        attention key bias is left out: its exact gradient is 0 (softmax
+        is invariant to it), so both runs step it by Adam-scaled noise."""
+        names = [n for n in init if n.startswith(f"layer_{layer}.")
+                 and not n.endswith("attention.key.bias")]
+        u = torch.cat([(run[0].params[n].float().cpu() - init[n]).flatten()
+                       for n in names]).double()
+        u_ref = torch.cat([(cpu[0].params[n] - init[n]).flatten() for n in names]).double()
+        return float(u @ u_ref / (u.norm() * u_ref.norm()))
+
+    layers = (0, cfg.num_layers - 1)
+    cos = {layer: update_cos(card, layer) for layer in layers}
+    cpu_cos = [update_cos(runs["cpu bf16"], layer) for layer in layers]
+    gap = abs(card[3] - cpu[3])
+    log(f"phase 9 bf16 step check ({CHECK_BATCH} queries, {batch['q_ids'].shape[1]} tokens, "
+        f"{sum(v.shape[0] for k, v in batch.items() if k.endswith('ids'))} sequences): loss "
+        f"card {card[3]:.6f} / cpu {cpu[3]:.6f} (|diff| {gap:.2e}, tol {TRAIN_LOSS_ATOL}); "
+        f"update cosine of the first / last layer {cos[0]:.6f} / "
+        f"{cos[cfg.num_layers - 1]:.6f} (tol {TRAIN_MIN_UPDATE_COS}); the CPU's own bf16 step: "
+        f"loss |diff| {abs(runs['cpu bf16'][3] - cpu[3]):.2e}, cosine {cpu_cos[0]:.6f} / "
+        f"{cpu_cos[1]:.6f}; cpu steps {cpu[4]:.1f} / {runs['cpu bf16'][4]:.1f} s")
+    check(gap <= TRAIN_LOSS_ATOL, f"bf16 step loss differs from float32 by {gap}")
+    check(all(c >= t for c, t in zip(cos.values(), TRAIN_MIN_UPDATE_COS)),
+          f"bf16 step update cosine {cos}")
+    state, step, place = card[:3]
+    losses = [card[3]]
+    for _ in range(9):
+        state, met = step(state, place(batch))
+        losses.append(float(met["loss"]))
+    log(f"phase 9 one batch repeated, 10 steps on the card: losses {json.dumps(losses)}")
+    check(losses[-1] < losses[0], f"the loss on a repeated batch did not fall: {losses}")
+    return {"loss_gap": gap, "update_cos": [cos[layer] for layer in layers],
+            "cpu_bf16_loss_gap": abs(runs["cpu bf16"][3] - cpu[3]), "cpu_bf16_update_cos": cpu_cos,
+            "repeated_losses": losses}
+
+
+def phase_training(ck, main_path, app, texts, smi, tmp_dir: Path):
+    """Phase 9: training on phase 7's app (1,016,384 leaf rows, MiniLM-L12
+    width, bf16). (a) `app.train` at batch 256 with 2 BM25-mined hard
+    negatives (1,024 sequences a step), then the checks: a bf16 card step
+    against a float32 CPU step, a repeated batch's falling loss, the
+    checkpoint restored bit for bit by a fresh Embedder, the swapped
+    encoder serving `app.search`, the calibration run again. (b)
+    `train_cross_encoder` at the cross-encoder's width over the corpus
+    texts with the app's BM25 index. Returns the (kernel, D or W, k, B)
+    shapes the training launched and the last mining queries."""
+    import torch
+
+    from radiant_rag_tpu_torch.models.embedder import Embedder
+    from radiant_rag_tpu_torch.parallel import data as tdata
+
+    bm = app.bm25_index.index
+    emb = app.local_models.embedder
+    hy = app.orchestrator._hybrid
+    launched = set()
+    ckpt_dir = tmp_dir / "train_ckpt"
+
+    # (a) the embedder
+    cal_before = hy.last_calibration
+    from_store_s = []
+    orig_from_store = tdata.ContrastivePairSampler.from_store.__func__
+
+    def timed_from_store(cls, *args, **kwargs):
+        t = time.perf_counter()
+        out = orig_from_store(cls, *args, **kwargs)
+        from_store_s.append(time.perf_counter() - t)
+        return out
+
+    tdata.ContrastivePairSampler.from_store = classmethod(timed_from_store)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with TrainProbe("contrastive_train_step", tdata.ContrastivePairSampler, bm,
+                        emb.bert_cfg) as probe:
+            metrics, d_train, t_train = main_path(lambda: app.train(
+                steps=TRAIN_STEPS, batch_size=TRAIN_BATCH, learning_rate=TRAIN_LR,
+                checkpoint_dir=str(ckpt_dir), hard_negatives=TRAIN_HARD))
+    finally:
+        tdata.ContrastivePairSampler.from_store = classmethod(orig_from_store)
+    launched.update(ck.launches_by_shape)
+    peak = torch.cuda.max_memory_allocated()
+    mining_queries = probe.mine_queries
+    log(f"phase 9 app.train: {TRAIN_STEPS} steps in {t_train:.1f} s (from_store over "
+        f"{len(probe.sampler.texts)} docs {from_store_s[0]:.1f} s); metrics {json.dumps(metrics)}"
+        f"; device memory resident before {resident / 2**30:.2f} GiB, peak "
+        f"{peak / 2**30:.2f} GiB; launches {d_train}, by shape "
+        f"{json.dumps({'/'.join(map(str, k)): v for k, v in sorted(ck.launches_by_shape.items())})}")
+    check(metrics["steps_run"] == TRAIN_STEPS and np.isfinite(metrics["loss"]), metrics)
+    check(d_train["int8_scan_topk"] > 0, f"mining launched no sketch scan: {d_train}")
+    sum_a = probe.summary("(a) embedder training", t_train - from_store_s[0], metrics, peak,
+                          smi)
+    sum_a["from_store_s"] = from_store_s[0]
+    check(len(probe.events) == TRAIN_STEPS and len(probe.mine_ms) == TRAIN_STEPS,
+          (len(probe.events), len(probe.mine_ms)))
+
+    # the checkpoint, restored by a fresh process's Embedder, is the swap
+    from radiant_rag_tpu_torch.parallel.checkpoint import TrainCheckpointer
+
+    check(TrainCheckpointer(str(ckpt_dir)).latest_step() == TRAIN_STEPS,
+          f"latest_step {TrainCheckpointer(str(ckpt_dir)).latest_step()}")
+    fresh = Embedder(dataclasses.replace(emb.config, checkpoint_dir=str(ckpt_dir)),
+                     device=emb.device)
+    served = emb.model.state_dict()
+    for name, value in fresh.model.state_dict().items():
+        check(torch.equal(value, served[name]), f"restored {name} differs from the swap")
+    q = mining_queries[:8]
+    check(np.array_equal(app.local_models.embed(q), fresh.embed(q)),
+          "the served encoder embeds other than the restored one")
+    check(hy.needs_calibration(), "app.train left the calibration in place")
+    hits, d_search, t_search = main_path(lambda: app.search_batch(q, use_cache=False))
+    launched.update(ck.launches_by_shape)
+    check(not hy.needs_calibration() and hy.last_calibration is not cal_before
+          and all(hits), "the calibration did not run again at the next search")
+    log(f"phase 9 after the swap: the checkpoint (step {TRAIN_STEPS}) restores bit for bit in a "
+        f"fresh Embedder, which embeds as the served encoder; the next search_batch ran the "
+        f"calibration again ({t_search:.2f} s): " + json.dumps(
+            {k: hy.last_calibration[k] for k in ("fusion_mode", "weights", "dense_mrr",
+                                                 "bm25_mrr")}))
+    checks = train_step_check(probe.sampler, emb.config, emb.device)
+
+    # (b) the cross-encoder over the corpus texts and the app's BM25 index
+    store = app.store
+    for r in (0, 1, N_DOCS // 2, N_DOCS - 1):
+        check(store.get_doc(store.id_for_row(r)).content == texts[r], f"row {r} is not doc {r}")
+    ce_cfg = app.local_models.cross_encoder.bert_cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with TrainProbe("cross_encoder_train_step", tdata.CrossEncoderPairSampler, bm,
+                    ce_cfg) as probe_ce:
+        ce_metrics, d_ce, t_ce = main_path(lambda: tdata.train_cross_encoder(
+            texts, bert_cfg=ce_cfg, device=app.device, steps=CE_STEPS, batch_size=CE_BATCH, learning_rate=5e-5,
+            max_seq_len=128, log_every=CE_STEPS, seed=SEED, bm25=bm, rows=range(N_DOCS),
+            hard_negatives=2, random_negatives=1, device_lock=app.device_lock))
+    launched.update(ck.launches_by_shape)
+    peak_ce = torch.cuda.max_memory_allocated()
+    check(ce_metrics["steps_run"] == CE_STEPS and np.isfinite(ce_metrics["loss"]), ce_metrics)
+    check(d_ce["int8_scan_topk"] > 0, f"CE mining launched no sketch scan: {d_ce}")
+    log(f"phase 9 train_cross_encoder: {CE_STEPS} steps of {CE_BATCH} pairs in {t_ce:.1f} s; "
+        f"metrics {json.dumps(ce_metrics)}; launches {d_ce}")
+    sum_b = probe_ce.summary("(b) cross-encoder training", t_ce, ce_metrics, peak_ce, smi)
+    log("phase 9 summary: " + json.dumps({"a": sum_a, "b": sum_b, "checks": checks,
+                                          "resident_gib": resident / 2**30}))
+    return launched, mining_queries
 
 
 if __name__ == "__main__":

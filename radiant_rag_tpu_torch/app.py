@@ -6,18 +6,20 @@ parent / leaf chunks -> embed on the device -> upsert -> BM25 sync), the
 query cache, `search` / `search_batch` / `search_batch_async` in the hybrid,
 dense and bm25 modes, `warmup`, the admin calls, and the agentic query path:
 `query` (cached), `query_raw`, `query_stream` (progress, token and result
-events), `simple_query` and conversations. Hybrid search is the fused
+events), `simple_query` and conversations, and `train` (fine-tune the
+embedder on the corpus, then hot-swap it). Hybrid search is the fused
 `HybridSearcher.search_rows` over the store's engine, fed by the query
 embeddings on the device (`embed_queries_device` -> `_qdev`), at the
 calibrated fusion (`fusion_weighting: auto`).
 
 Card work is serialized by one lock, `device_lock`, which the server's
 search batches, /health's embed and every device stage of a pipeline run
-take; a run holds it only for its device stages, never across an LLM call.
+take; a run holds it only for its device stages, never across an LLM call,
+and `train` for each mining search, each step and the swap.
 
 Not here yet, each raising `NotImplementedError` with its ROADMAP item:
 the crawlers (`ingest_urls`, `ingest_github`) and the reports and TUI,
-queue A item 11 (rest), and `train` (queue A item 12).
+queue A item 11 (rest).
 
 `RadiantTPU(device=None)` runs on CUDA and raises without a card; tests
 pass device="cpu".
@@ -58,7 +60,6 @@ CRAWLERS_NOT_PORTED = ("the web and GitHub crawlers are not ported yet: "
                        "ROADMAP queue A item 11 (rest)")
 UI_NOT_PORTED = ("the reports and the terminal UI (ui/) are not ported yet: "
                  "ROADMAP queue A item 11 (rest)")
-TRAIN_NOT_PORTED = "embedder training is not ported yet: ROADMAP queue A item 12"
 
 Hits = List[Tuple[Any, float]]
 
@@ -271,8 +272,45 @@ class RadiantTPU:
             raise RuntimeError("conversations disabled in config")
         return self.conversations.start_conversation()
 
-    def train(self, *args: Any, **kwargs: Any) -> Dict[str, float]:
-        raise NotImplementedError(TRAIN_NOT_PORTED)
+    def train(self, steps: int = 100, batch_size: int = 32, learning_rate: float = 2e-5,
+              checkpoint_dir: str = "", hard_negatives: int = 2,
+              auto: bool = False) -> Dict[str, Any]:
+        """Fine-tune the embedder on the indexed corpus on the app's device
+        and make the result live: BM25-mined hard negatives from the app's
+        index, warmup + cosine LR (`parallel/data.train_embedder`), a
+        checkpoint in checkpoint_dir (default embedding.checkpoint_dir),
+        which a fresh process restores, then the serving encoder's params
+        swapped (its embedding cache cleared), the query cache cleared and
+        the fusion calibration invalidated, all under the device lock.
+        The stored corpus keeps the vectors of the old encoder until it is
+        ingested again, as in the JAX package.
+
+        auto=True is the measured recipe of the JAX package: a 12k-step
+        ceiling with accuracy-plateau stopping (min 5000 steps, window
+        2500, eps 0.005), batch >= 256, lr 1e-4, >= 2 hard negatives and
+        `paraphrase_augment` on the queries."""
+        from radiant_rag_tpu_torch.parallel.data import paraphrase_augment, train_embedder
+
+        if auto:
+            steps = max(steps, 12000)
+            batch_size = max(batch_size, 256)
+            learning_rate = 1e-4
+            hard_negatives = max(hard_negatives, 2)
+        metrics, params = train_embedder(
+            self.store, self.config.embedding, device=self.device, steps=steps,
+            batch_size=batch_size, learning_rate=learning_rate,
+            checkpoint_dir=checkpoint_dir or self.config.embedding.checkpoint_dir,
+            bm25=self.bm25_index.index if hard_negatives > 0 else None,
+            hard_negatives=hard_negatives, return_params=True,
+            query_augment=paraphrase_augment if auto else None, auto_stop=auto,
+            device_lock=self.device_lock,
+            **({"min_steps": 5000, "plateau_window": 2500, "plateau_eps": 0.005}
+               if auto else {}))
+        with self.device_lock:
+            self.local_models.embedder.set_params(params)
+            self.query_cache.clear()  # its results embedded with the old encoder
+            self.orchestrator.invalidate_fusion_calibration()
+        return metrics
 
     # ------------------------------------------------------------------
     # search
@@ -558,9 +596,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--lr", type=float, default=2e-5)
-    p.add_argument("--checkpoint-dir", default="")
-    p.add_argument("--hard-negatives", type=int, default=2, metavar="H")
-    p.add_argument("--auto", action="store_true")
+    p.add_argument("--checkpoint-dir", default="",
+                   help="output directory (default: embedding.checkpoint_dir)")
+    p.add_argument("--hard-negatives", type=int, default=2, metavar="H",
+                   help="BM25-mined hard negatives per query (0 disables)")
+    p.add_argument("--auto", action="store_true",
+                   help="the measured recipe: 12k-step ceiling with accuracy-plateau "
+                        "stopping, hard negatives, paraphrase query augmentation")
 
     p = sub.add_parser("serve", help="HTTP JSON API server")
     p.add_argument("--host", default="0.0.0.0")
@@ -586,7 +628,7 @@ def build_parser() -> argparse.ArgumentParser:
 # subcommands whose layers are not ported yet, and the ROADMAP item of each
 _NOT_PORTED_COMMANDS = {
     "ingest-urls": CRAWLERS_NOT_PORTED, "ingest-github": CRAWLERS_NOT_PORTED,
-    "train": TRAIN_NOT_PORTED, "tui": UI_NOT_PORTED,
+    "tui": UI_NOT_PORTED,
 }
 
 
@@ -659,6 +701,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             modes=[m.strip() for m in args.modes.split(",") if m.strip()],
             progress=lambda stage, s: print(f"  {stage}: {s:.1f}s", flush=True))
         print(f"done: {len(timings)} stages in {sum(timings.values()):.1f}s")
+    elif args.command == "train":
+        metrics = app.train(steps=args.steps, batch_size=args.batch_size, learning_rate=args.lr,
+                            checkpoint_dir=args.checkpoint_dir,
+                            hard_negatives=args.hard_negatives, auto=args.auto)
+        print(json.dumps(metrics))
     elif args.command == "stats":
         _print_json(app.get_stats())
     elif args.command == "health":

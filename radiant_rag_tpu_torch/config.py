@@ -139,8 +139,8 @@ class EmbeddingConfig:
     normalize: bool = True
     cache_size: int = 10000
     dtype: str = "bfloat16"
-    # the JAX package's `train` output (orbax); the port raises when this
-    # directory holds anything (ROADMAP queue A item 12)
+    # the `train` output in the port's checkpoint format, restored by the
+    # Embedder; a JAX orbax directory here raises (convert.embedder_checkpoint_from_jax)
     checkpoint_dir: str = "./data/embedder_ckpt"
 
 

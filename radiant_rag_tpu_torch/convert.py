@@ -13,7 +13,11 @@ Model weights: `bert_params_from_jax` / `cross_encoder_params_from_jax`
 turn a flax parameter tree (numpy leaves) into the port's `state_dict`. The
 port's modules carry the flax names, so each leaf is renamed (`kernel`,
 `scale`, `embedding` -> `weight`) and each Dense kernel (in, out) is
-transposed to the (out, in) layout of `nn.Linear`.
+transposed to the (out, in) layout of `nn.Linear`; `params_to_flat` goes
+back. Training: `train_state_from_jax` carries a JAX TrainState's params
+and AdamW moments into the port's `TrainState`, and
+`embedder_checkpoint_from_jax` writes a JAX-trained params tree as a port
+checkpoint (`parallel/checkpoint.py`), which `Embedder` restores.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from radiant_rag_tpu_torch.config import IndexConfig, QuantizationConfig
 from radiant_rag_tpu_torch.index.bm25 import BM25Index
@@ -138,6 +143,27 @@ def params_from_flat(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+_FLAX_LEAF_NAMES = {nn.Linear: {"weight": "kernel", "bias": "bias"},
+                    nn.LayerNorm: {"weight": "scale", "bias": "bias"},
+                    nn.Embedding: {"weight": "embedding"}}
+
+
+def params_to_flat(model: nn.Module, tensors: Mapping[str, torch.Tensor]
+                   ) -> Dict[str, np.ndarray]:
+    """params_from_flat's inverse: float32 numpy leaves keyed by flax tree
+    paths (Dense kernels back to (in, out)) from tensors named as `model`'s
+    parameters (its state_dict, or its AdamW moments)."""
+    kinds = {name: type(m) for name, m in model.named_modules()}
+    out = {}
+    for key, value in tensors.items():
+        mod, _, leaf = key.rpartition(".")
+        flax_leaf = _FLAX_LEAF_NAMES[kinds[mod]][leaf]
+        arr = value.detach().float().cpu().numpy()
+        out["/".join(mod.split(".") + [flax_leaf])] = np.ascontiguousarray(
+            arr.T if flax_leaf == "kernel" else arr)
+    return out
+
+
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     flat = {}
     for name, value in tree.items():
@@ -168,3 +194,46 @@ def cross_encoder_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Te
     if set(tree) != {"bert", "pooler", "classifier"}:
         raise ValueError(f"not a cross-encoder tree: {sorted(tree)}")
     return params_from_flat(_flatten(tree))
+
+
+def _adam_state(opt_state) -> Any:
+    """The ScaleByAdamState (count, mu, nu) inside an optax adamw state."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, tuple):
+        for part in opt_state:
+            found = _adam_state(part)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(params_tree: Mapping[str, Any], opt_state: Any, into):
+    """Load a JAX TrainState's params tree and `optax.adamw` state (numpy
+    leaves, `jax.device_get` of both) into the port's `TrainState` `into`
+    (built by `make_train_state` / `make_ce_train_state` with the same
+    architecture and schedule): params, AdamW's mu and nu (kernels
+    transposed as the params) and its count, which becomes `into.step`.
+    Returns `into`."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no adam state (count, mu, nu) in the optax state")
+    params, mu, nu = (params_from_flat(_flatten(_unwrap(t)))
+                      for t in (params_tree, adam.mu, adam.nu))
+    return into.load(params, mu, nu, int(np.asarray(adam.count)))
+
+
+def embedder_checkpoint_from_jax(params_tree: Mapping[str, Any], directory: str,
+                                 step: int) -> None:
+    """Write a JAX-trained bi-encoder params tree (numpy leaves, as the JAX
+    package's `TrainCheckpointer(dir).restore()["params"]` returns it) as
+    step `step` of a port checkpoint in `directory`, which an `Embedder`
+    with `embedding.checkpoint_dir` = directory then serves. The moments
+    are written as zeros."""
+    from radiant_rag_tpu_torch.parallel.checkpoint import TrainCheckpointer
+
+    tree = _unwrap(params_tree)
+    if "bert" in tree:
+        raise ValueError("a cross-encoder tree: the embedder's checkpoint takes a BertEncoder's")
+    flat = {k: np.asarray(v, np.float32) for k, v in _flatten(tree).items()}
+    TrainCheckpointer(directory).save_arrays(step, flat, count=step)

@@ -133,9 +133,12 @@ class BertEncoder(nn.Module):
         s = input_ids.shape[1]
         ids = input_ids.long()
         types = torch.zeros_like(ids) if token_type_ids is None else token_type_ids.long()
-        word = self.word_emb.weight[ids].to(cfg.dtype)
+        # the module calls gather float32 rows as indexing would; their
+        # backward (`embedding_dense_backward`) sums a repeated id's rows in
+        # parallel, where indexing's serializes them (padding, type 0)
+        word = self.word_emb(ids).to(cfg.dtype)
         pos = self.pos_emb.weight[:s].to(cfg.dtype)[None]
-        typ = self.type_emb.weight[types].to(cfg.dtype)
+        typ = self.type_emb(types).to(cfg.dtype)
         x = layer_norm(self.emb_ln, (word + pos) + typ, cfg.dtype)
         mask = attention_mask.bool()
         for i in range(cfg.num_layers):

@@ -55,8 +55,9 @@ class Embedder:
                  params: Optional[Dict[str, torch.Tensor]] = None, seed: int = 0,
                  device=None) -> None:
         """params: a `BertEncoder` state_dict (`convert.bert_params_from_jax`
-        carries the JAX package's across); else checkpoint_dir, weights_path
-        (HF), the shipped artifact, then a seeded init."""
+        carries the JAX package's across); else the latest checkpoint in
+        checkpoint_dir, weights_path (HF), the shipped artifact, then a
+        seeded init."""
         self.device = resolve_device(device)
         self.config = config or EmbeddingConfig()
         cfg = self.config
@@ -67,7 +68,8 @@ class Embedder:
         self.model = BertEncoder(self.bert_cfg)
         self.tokenizer = load_tokenizer(cfg.weights_path, cfg.vocab_size)
         if params is None:
-            self._refuse_checkpoint(cfg)
+            params = self._restore_checkpoint(cfg)
+        if params is None:
             if cfg.weights_path:
                 from radiant_rag_tpu_torch.models.hf_loading import try_load_bert_params
 
@@ -83,17 +85,34 @@ class Embedder:
         self.model.to(self.device).eval()
         self.cache = cache if cache is not None else EmbeddingCache(cfg.cache_size)
 
-    @staticmethod
-    def _refuse_checkpoint(cfg: EmbeddingConfig) -> None:
-        """The JAX package restores its `train` output (an orbax checkpoint)
-        from checkpoint_dir; the port cannot read one yet, and serving other
-        weights than the deployment trained would be silent."""
+    def _restore_checkpoint(self, cfg: EmbeddingConfig) -> Optional[Dict[str, torch.Tensor]]:
+        """The latest trained params in cfg.checkpoint_dir (the `train`
+        output, `parallel/checkpoint.py`): how a fresh process serves a
+        trained encoder. None when the directory is missing, empty or holds
+        no step. Unlike the JAX package, which logs and serves other
+        weights, a checkpoint that does not fit this architecture raises
+        (ValueError), as does any failure to read it, and an orbax
+        directory of the JAX package raises NotImplementedError naming
+        `convert.embedder_checkpoint_from_jax`."""
         d = cfg.checkpoint_dir
-        if d and os.path.isdir(d) and os.listdir(d):
-            raise NotImplementedError(
-                f"embedding.checkpoint_dir {d!r} holds a trained checkpoint, which the "
-                "port cannot restore yet (ROADMAP queue A item 12); pass params or "
-                "point checkpoint_dir elsewhere")
+        if not d or not os.path.isdir(d) or not os.listdir(d):
+            return None
+        from radiant_rag_tpu_torch.convert import params_from_flat
+        from radiant_rag_tpu_torch.parallel.checkpoint import TrainCheckpointer
+
+        state = TrainCheckpointer(d).restore()
+        if state is None:
+            return None
+        params = params_from_flat(state["params"])
+        template = self.model.state_dict()
+        bad = sorted(k for k in set(template) | set(params)
+                     if k not in params or k not in template
+                     or tuple(params[k].shape) != tuple(template[k].shape))
+        if bad:
+            raise ValueError(f"embedder checkpoint {d} (step {state['step']}) does not fit "
+                             f"the configured architecture: {bad[:5]}")
+        logger.info("embedder: restored trained params from %s (step %s)", d, state["step"])
+        return params
 
     def set_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Hot-swap encoder weights; clears the cache (its vectors are from

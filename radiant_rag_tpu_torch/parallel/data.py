@@ -1,20 +1,30 @@
-"""Probe queries for fusion calibration: the pseudo-query makers.
+"""Training data: (pseudo-query, document) pairs from the corpus.
 
-The port's copy of `make_pseudo_query`, `make_paraphrase_query` and the
-`_SENT_RE`, `SYNONYMS` and `STOPWORDS` tables they read, from
-`radiant_rag_tpu/parallel/data.py`, unchanged: a probe drawn from the same
-text with the same numpy generator is the same string in both packages.
-`HybridSearcher.calibrate_fusion` makes its self-retrieval probes with them.
-The training side of that module (`train_embedder`, `paraphrase_augment`,
-the pair samplers) waits for ROADMAP queue A item 12.
+Counterpart of `radiant_rag_tpu/parallel/data.py`: the pseudo-query makers
+(`make_pseudo_query`, `make_paraphrase_query`) and the `_SENT_RE`,
+`SYNONYMS` and `STOPWORDS` tables they read, the query augmentations, the
+pair samplers with BM25 hard-negative mining, and the training entry points
+`train_embedder` / `train_cross_encoder` with their loop. Host sampling is
+numpy with the same generator calls in the same order as the JAX package's,
+so one seed over the same corpus and BM25 index gives the same batches in
+both packages. `HybridSearcher.calibrate_fusion` makes its self-retrieval
+probes with the makers.
+
+One device: the JAX package rounds the batch up to its mesh's data axis,
+which is 1 here, so the port has no rounding. `device_lock` (the app's
+lock, where given) is taken around each BM25 mining search and each step.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import re
-from typing import List
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 _SENT_RE = re.compile(r"(?<=[.!?])\s+")
 
@@ -112,3 +122,392 @@ def make_paraphrase_query(text: str, rng: np.random.Generator,
     if not out:
         out = [w.lower() for w in words[start : start + max_words]]
     return " ".join(out)
+
+
+def synonym_augment(query: str, rng: np.random.Generator,
+                    p: float = 0.5) -> str:
+    """Training-time query augmentation: each content word flips to its
+    synonym with probability p (ContrastivePairSampler query_augment)."""
+    out: List[str] = []
+    for w in query.split():
+        m = SYNONYMS.get(w.lower())
+        out.extend(m.split() if (m and rng.random() < p) else [w])
+    return " ".join(out)
+
+
+def paraphrase_augment(query: str, rng: np.random.Generator) -> str:
+    """Training-time augmentation in the full paraphrase regime: 30% of
+    draws untouched, 40% `synonym_augment`, 30% the full transform
+    (stopwords dropped, every known content word swapped, and half the time
+    two adjacent content words swapped)."""
+    r = rng.random()
+    if r < 0.30:
+        return query
+    if r < 0.70:
+        return synonym_augment(query, rng)
+    out: List[str] = []
+    for w in query.split():
+        lw = "".join(ch for ch in w.lower() if ch.isalnum())
+        if not lw or lw in STOPWORDS:
+            continue
+        out.extend(SYNONYMS.get(lw, lw).split())
+    if not out:
+        return synonym_augment(query, rng)
+    if len(out) > 3 and rng.random() < 0.5:
+        i = int(rng.integers(0, len(out) - 1))
+        out[i], out[i + 1] = out[i + 1], out[i]
+    return " ".join(out)
+
+
+def _locked(lock):
+    return lock if lock is not None else contextlib.nullcontext()
+
+
+class ContrastivePairSampler:
+    """Batches of tokenized (query, doc) pairs from stored documents.
+
+    With `bm25` + `rows` and n_hard_negatives > 0, each batch also mines H
+    lexically close non-target docs per query (BM25's top hits for the
+    pseudo-query, the positive excluded) as explicit hard negatives
+    (`train.info_nce_loss` n_ids / n_mask). `bm25` is a `BM25Index`; its
+    search runs on its device."""
+
+    def __init__(self, texts: Sequence[str], tokenizer, batch_size: int = 32,
+                 max_seq_len: int = 128, seed: int = 0,
+                 bm25=None, rows: Optional[Sequence[int]] = None,
+                 n_hard_negatives: int = 0,
+                 query_augment=None, device_lock=None) -> None:
+        """query_augment: optional (query_text, rng) -> str applied to each
+        pseudo-query (`synonym_augment`, `paraphrase_augment`)."""
+        if not texts:
+            raise ValueError("no embedded docs in the store to train on")
+        # a tiny corpus samples with replacement rather than refuse
+        self._replace = len(texts) < batch_size
+        if self._replace:
+            logger.warning("corpus has %d docs < batch_size %d; sampling with replacement",
+                           len(texts), batch_size)
+        self.texts = list(texts)
+        self.tokenizer = tokenizer
+        self.batch_size = batch_size
+        self.max_seq_len = max_seq_len
+        self.rng = np.random.default_rng(seed)
+        self.bm25 = bm25
+        self.rows = list(rows) if rows is not None else None
+        self.n_hard = int(n_hard_negatives)
+        self.query_augment = query_augment
+        self.device_lock = device_lock
+        if self.n_hard > 0 and (bm25 is None or self.rows is None):
+            raise ValueError("hard negatives need bm25 + rows")
+        self._row_to_text = (
+            {r: t for r, t in zip(self.rows, self.texts)} if self.rows else {})
+
+    @classmethod
+    def from_store(cls, store, tokenizer, bm25=None, **kwargs) -> "ContrastivePairSampler":
+        ids = store.list_doc_ids_with_embeddings()
+        texts = [store.get_doc(i).content for i in ids]
+        rows = [store.row_of(i) for i in ids] if bm25 is not None else None
+        return cls(texts, tokenizer, bm25=bm25, rows=rows, **kwargs)
+
+    def _mine_hard_negatives(self, queries: List[str], pos_idx: np.ndarray) -> List[str]:
+        """BM25's top hits per pseudo-query, positives excluded; a random
+        fill when a query surfaces too few (rare terms)."""
+        with _locked(self.device_lock):
+            _s, rows_out = self.bm25.search_rows_batch(queries, top_k=self.n_hard + 2)
+        out: List[str] = []
+        for qi in range(len(queries)):
+            pos_row = self.rows[pos_idx[qi]]
+            negs = [int(r) for r in rows_out[qi]
+                    if r >= 0 and int(r) != pos_row and int(r) in self._row_to_text]
+            negs = negs[: self.n_hard]
+            while len(negs) < self.n_hard:  # fill from random non-positives
+                cand = self.rows[int(self.rng.integers(0, len(self.rows)))]
+                if cand != pos_row:
+                    negs.append(cand)
+            out.extend(self._row_to_text[r] for r in negs)
+        return out
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield self.next_batch()
+
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        idx = self.rng.choice(len(self.texts), self.batch_size, replace=self._replace)
+        docs = [self.texts[i] for i in idx]
+        queries = [make_pseudo_query(d, self.rng) for d in docs]
+        if self.query_augment is not None:
+            queries = [self.query_augment(q, self.rng) for q in queries]
+        q_ids, q_mask, _ = self.tokenizer.encode_batch(queries, self.max_seq_len)
+        d_ids, d_mask, _ = self.tokenizer.encode_batch(docs, self.max_seq_len)
+        parts = {"q": (q_ids, q_mask), "d": (d_ids, d_mask)}
+        if self.n_hard > 0:
+            negs = self._mine_hard_negatives(queries, idx)
+            parts["n"] = self.tokenizer.encode_batch(negs, self.max_seq_len)[:2]
+        # every side padded to one shared length: the encoder sees one shape
+        s = max(ids.shape[1] for ids, _ in parts.values())
+
+        def padto(a):
+            return np.pad(a, ((0, 0), (0, s - a.shape[1])))
+
+        return {f"{p}_{name}": padto(arr)
+                for p, (ids, mask) in parts.items()
+                for name, arr in (("ids", ids), ("mask", mask))}
+
+
+def train_embedder(
+    store,
+    embedding_config,
+    device=None,
+    steps: int = 100,
+    batch_size: int = 32,
+    learning_rate: float = 2e-5,
+    checkpoint_dir: str = "",
+    log_every: int = 10,
+    seed: int = 0,
+    return_params: bool = False,
+    bm25=None,
+    hard_negatives: int = 0,
+    lr_schedule: bool = True,
+    init_params_tree=None,
+    query_augment=None,
+    auto_stop: bool = False,
+    min_steps: int = 2000,
+    plateau_window: int = 1500,
+    plateau_eps: float = 0.01,
+    sampler: "Optional[ContrastivePairSampler]" = None,
+    device_lock=None,
+):
+    """Fine-tune the bi-encoder on the indexed corpus, on `device` (None:
+    CUDA). From a seeded init, or `init_params_tree` (a BertEncoder
+    state_dict); bm25 + hard_negatives > 0 mines lexically close
+    non-targets per query; lr_schedule turns on the warmup + cosine
+    schedule over `steps`. auto_stop makes `steps` a ceiling: training
+    stops once the in-batch accuracy's EMA has not risen by plateau_eps
+    within plateau_window steps (after min_steps). Saves the final state
+    to checkpoint_dir when given. Returns the metrics (with steps_run, and
+    under auto_stop stop_reason and accuracy_ema), and the trained
+    state_dict too with return_params."""
+    from radiant_rag_tpu_torch.models.bert import BertConfig
+    from radiant_rag_tpu_torch.models.embedder import compute_dtype
+    from radiant_rag_tpu_torch.models.tokenizer import load_tokenizer
+    from radiant_rag_tpu_torch.parallel.train import contrastive_train_step, make_train_state
+
+    cfg = embedding_config
+    bert_cfg = BertConfig(
+        vocab_size=cfg.vocab_size, hidden_size=cfg.dim, num_layers=cfg.num_layers,
+        num_heads=cfg.num_heads, intermediate_size=cfg.hidden_dim,
+        dtype=compute_dtype(cfg.dtype))
+    state = make_train_state(bert_cfg, learning_rate, seed=seed,
+                             schedule_steps=steps if lr_schedule else 0,
+                             init_params_tree=init_params_tree, device=device)
+    step_fn, place_batch = contrastive_train_step(device)
+    if sampler is None:
+        tokenizer = load_tokenizer(cfg.weights_path, cfg.vocab_size)
+        sampler = ContrastivePairSampler.from_store(
+            store, tokenizer, bm25=bm25, batch_size=batch_size,
+            max_seq_len=min(cfg.max_seq_len, 128), seed=seed,
+            n_hard_negatives=hard_negatives if bm25 is not None else 0,
+            query_augment=query_augment, device_lock=device_lock)
+    sampler.batch_size = batch_size
+    ckpt = None
+    if checkpoint_dir:
+        from radiant_rag_tpu_torch.parallel.checkpoint import TrainCheckpointer
+
+        ckpt = TrainCheckpointer(checkpoint_dir)
+    state, last = _train_loop(state, step_fn, place_batch, sampler, steps, log_every,
+                              auto_stop, min_steps, plateau_window, plateau_eps, device_lock)
+    if ckpt is not None:
+        ckpt.save(state.step, state)
+    if return_params:
+        return last, state.params
+    return last
+
+
+def _train_loop(state, step_fn, place_batch, sampler, steps: int,
+                log_every: int, auto_stop: bool, min_steps: int,
+                plateau_window: int, plateau_eps: float, device_lock=None):
+    """The loop both trainers share: sample, step, fetch the metrics only
+    at check points, log, and stop on the accuracy plateau under
+    auto_stop. Returns (state, metrics)."""
+    last: Dict = {}
+    ema, best_ema, best_step = None, -1.0, 0
+    check_every = max(1, min(log_every, 100)) if auto_stop else log_every
+    stop_reason = "steps_exhausted"
+    steps_run = steps
+    for i in range(steps):
+        host = sampler.next_batch()
+        with _locked(device_lock):
+            state, metrics = step_fn(state, place_batch(host))
+        if (i + 1) % check_every == 0 or (i + 1) % log_every == 0 or i == steps - 1:
+            last = {k: float(v) for k, v in metrics.items()}
+            if (i + 1) % log_every == 0 or i == steps - 1:
+                logger.info("step %d/%d loss=%.4f acc=%.3f", i + 1, steps,
+                            last["loss"], last["accuracy"])
+            if auto_stop:
+                acc = last["accuracy"]
+                ema = acc if ema is None else 0.8 * ema + 0.2 * acc
+                if ema > best_ema + plateau_eps:
+                    best_ema, best_step = ema, i + 1
+                elif (i + 1) >= min_steps and (i + 1) - best_step >= plateau_window:
+                    stop_reason = "accuracy_plateau"
+                    steps_run = i + 1
+                    logger.info("auto-stop at step %d: accuracy EMA %.3f flat since step %d "
+                                "(window %d, eps %.3f)", i + 1, ema, best_step,
+                                plateau_window, plateau_eps)
+                    break
+    last["steps_run"] = steps_run if auto_stop else steps
+    if auto_stop:
+        last["stop_reason"] = stop_reason
+        last["accuracy_ema"] = round(ema or 0.0, 4)
+    return state, last
+
+
+class CrossEncoderPairSampler:
+    """Labeled (query, doc) pair batches for cross-encoder training.
+
+    Each batch packs groups of (1 positive + n_hard BM25 hard negatives +
+    n_random random negatives) sharing one pseudo-query, positive first.
+    Queries mix ICT spans and synonym-paraphrase rewrites
+    (`paraphrase_fraction`): the reranker scores both regimes."""
+
+    def __init__(self, texts: Sequence[str], tokenizer, batch_size: int = 64,
+                 max_seq_len: int = 128, seed: int = 0,
+                 bm25=None, rows: Optional[Sequence[int]] = None,
+                 n_hard_negatives: int = 2, n_random_negatives: int = 1,
+                 paraphrase_fraction: float = 0.5,
+                 query_augment=None, device_lock=None) -> None:
+        if not texts:
+            raise ValueError("no docs to train on")
+        self.texts = list(texts)
+        self.tokenizer = tokenizer
+        self.group = 1 + n_hard_negatives + n_random_negatives
+        self.n_groups = max(1, batch_size // self.group)
+        self.batch_size = self.n_groups * self.group
+        self.max_seq_len = max_seq_len
+        self.rng = np.random.default_rng(seed)
+        self.bm25 = bm25
+        self.rows = list(rows) if rows is not None else None
+        self.n_hard = int(n_hard_negatives)
+        self.n_rand = int(n_random_negatives)
+        self.paraphrase_fraction = float(paraphrase_fraction)
+        self.query_augment = query_augment
+        self.device_lock = device_lock
+        if self.n_hard > 0 and (bm25 is None or self.rows is None):
+            raise ValueError("hard negatives need bm25 + rows")
+        self._row_to_text = (
+            {r: t for r, t in zip(self.rows, self.texts)} if self.rows else {})
+
+    def _make_query(self, doc: str) -> str:
+        if self.rng.random() < self.paraphrase_fraction:
+            q = make_paraphrase_query(doc, self.rng)
+        else:
+            q = make_pseudo_query(doc, self.rng)
+        if self.query_augment is not None:
+            q = self.query_augment(q, self.rng)
+        return q
+
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        idx = self.rng.choice(len(self.texts), self.n_groups,
+                              replace=len(self.texts) < self.n_groups)
+        queries = [self._make_query(self.texts[i]) for i in idx]
+        hard: List[List[str]] = [[] for _ in queries]
+        if self.n_hard > 0:
+            with _locked(self.device_lock):
+                _s, rows_out = self.bm25.search_rows_batch(queries, top_k=self.n_hard + 2)
+            for qi in range(len(queries)):
+                pos_row = self.rows[idx[qi]]
+                negs = [int(r) for r in rows_out[qi]
+                        if r >= 0 and int(r) != pos_row
+                        and int(r) in self._row_to_text]
+                negs = negs[: self.n_hard]
+                while len(negs) < self.n_hard:
+                    cand = int(self.rng.integers(0, len(self.texts)))
+                    if cand != idx[qi] and self.rows[cand] not in negs:
+                        negs.append(self.rows[cand])
+                hard[qi] = [self._row_to_text[r] for r in negs]
+        q_rep: List[str] = []
+        docs: List[str] = []
+        labels: List[int] = []
+        for qi, q in enumerate(queries):
+            q_rep.append(q)
+            docs.append(self.texts[idx[qi]])
+            labels.append(1)
+            for neg in hard[qi]:
+                q_rep.append(q)
+                docs.append(neg)
+                labels.append(0)
+            for _ in range(self.n_rand):
+                j = int(self.rng.integers(0, len(self.texts)))
+                while j == idx[qi]:
+                    j = int(self.rng.integers(0, len(self.texts)))
+                q_rep.append(q)
+                docs.append(self.texts[j])
+                labels.append(0)
+        ids, mask, types = self.tokenizer.encode_batch(q_rep, self.max_seq_len, pairs=docs)
+        return {"ids": ids, "mask": mask, "type_ids": types,
+                "labels": np.asarray(labels, np.int32)}
+
+
+def train_cross_encoder(
+    texts: Sequence[str],
+    bert_cfg=None,
+    device=None,
+    steps: int = 2000,
+    batch_size: int = 64,
+    learning_rate: float = 5e-5,
+    max_seq_len: int = 128,
+    checkpoint_dir: str = "",
+    log_every: int = 100,
+    seed: int = 0,
+    return_params: bool = False,
+    bm25=None,
+    rows: Optional[Sequence[int]] = None,
+    hard_negatives: int = 2,
+    random_negatives: int = 1,
+    query_augment=None,
+    auto_stop: bool = False,
+    min_steps: int = 1000,
+    plateau_window: int = 800,
+    plateau_eps: float = 0.01,
+    sampler: Optional[CrossEncoderPairSampler] = None,
+    vocab_size: int = 8192,
+    loss: str = "listwise",
+    device_lock=None,
+):
+    """Train the cross-encoder reranker on the corpus texts, on `device`
+    (None: CUDA), with the bi-encoder's recipe: pseudo-query positives, BM25
+    hard negatives, optional augmentation, plateau auto-stop, the warmup +
+    cosine schedule over `steps`. loss "listwise" (one of group per query
+    block) or "pointwise". Returns the metrics, and the state_dict too
+    with return_params."""
+    import torch
+
+    from radiant_rag_tpu_torch.models.bert import BertConfig
+    from radiant_rag_tpu_torch.models.tokenizer import load_tokenizer
+    from radiant_rag_tpu_torch.parallel.train import (
+        cross_encoder_train_step, make_ce_train_state,
+    )
+
+    if bert_cfg is None:
+        bert_cfg = BertConfig(vocab_size=vocab_size, dtype=torch.bfloat16)
+    state = make_ce_train_state(bert_cfg, learning_rate, seed=seed, schedule_steps=steps,
+                                device=device)
+    if sampler is None:
+        tokenizer = load_tokenizer("", bert_cfg.vocab_size)
+        sampler = CrossEncoderPairSampler(
+            texts, tokenizer, batch_size=batch_size, max_seq_len=max_seq_len,
+            seed=seed, bm25=bm25, rows=rows, n_hard_negatives=hard_negatives,
+            n_random_negatives=random_negatives, query_augment=query_augment,
+            device_lock=device_lock)
+    step_fn, place_batch = cross_encoder_train_step(device, loss=loss, group=sampler.group)
+    ckpt = None
+    if checkpoint_dir:
+        from radiant_rag_tpu_torch.parallel.checkpoint import TrainCheckpointer
+
+        ckpt = TrainCheckpointer(checkpoint_dir)
+    state, last = _train_loop(state, step_fn, place_batch, sampler, steps, log_every,
+                              auto_stop, min_steps, plateau_window, plateau_eps, device_lock)
+    if ckpt is not None:
+        ckpt.save(state.step, state)
+    if return_params:
+        return last, state.params
+    return last

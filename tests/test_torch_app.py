@@ -15,6 +15,7 @@ Mirrors `tests/test_app.py` for the retrieval half of the app.
 """
 
 import dataclasses
+import inspect
 import json
 
 import numpy as np
@@ -148,10 +149,12 @@ def test_health_and_stats_keys_match_jax(apps):
 def test_deferred_methods_name_their_roadmap_item(apps):
     t = apps["t"]
     for call, item in ((lambda: t.ingest_urls(["http://localhost/"]), "item 11 \\(rest\\)"),
-                       (lambda: t.ingest_github("https://localhost/r"), "item 11 \\(rest\\)"),
-                       (lambda: t.train(steps=1), "item 12")):
+                       (lambda: t.ingest_github("https://localhost/r"), "item 11 \\(rest\\)")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # train is ported (tests/test_torch_train_data.py drives it): the JAX signature
+    assert inspect.signature(type(t).train).parameters == \
+        inspect.signature(JaxApp.train).parameters
     assert t._chunk_markdown("# A\n\nx\n\n# B\n\ny") == \
         JaxApp._chunk_markdown("# A\n\nx\n\n# B\n\ny")
 
@@ -270,7 +273,7 @@ def test_cli_main_on_env_overrides(tmp_path, monkeypatch, capsys):
     assert "BM25 index rebuilt" in capsys.readouterr().out
     assert tapp.main(["clear"]) == 0
     assert tapp.main(["warmup"]) == 1  # nothing to warm
-    for argv, item in ((["query", "q", "--report", "r.md"], "item 11"), (["train"], "item 12"),
+    for argv, item in ((["query", "q", "--report", "r.md"], "item 11"),
                        (["ingest-urls", "http://localhost/"], "item 11"), (["tui"], "item 11"),
                        (["search", "x", "--save", "r.md"], "item 11")):
         with pytest.raises(NotImplementedError, match=item):

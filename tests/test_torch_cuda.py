@@ -510,3 +510,50 @@ def test_agentic_run_on_card_equals_cpu(card, tmp_path):
     scores = [[s for _, s in r.fused_docs] for r in (ref, got)]
     assert len(rows[0]) == len(rows[1]) > 0
     assert_rows_match([rows[0]], [scores[0]], [rows[1]], [scores[1]], "agentic fused docs")
+
+
+@pytest.mark.parametrize("kind", ["contrastive", "ce_listwise"])
+def test_train_steps_on_card_equal_cpu(card, kind):
+    """Three AdamW steps (warmup + cosine) of a small float32 model on the
+    card and on the CPU from the same init and batches: losses within rtol
+    1e-4, params within 2e-5 but for the leaves whose exact gradient is 0
+    (tests/test_torch_train.py), held within steps x lr."""
+    from radiant_rag_tpu_torch.models.bert import BertConfig, BertEncoder, init_module
+    from radiant_rag_tpu_torch.models.cross_encoder import CrossEncoderModel
+    from radiant_rag_tpu_torch.parallel import train as tt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = BertConfig(vocab_size=300, hidden_size=64, num_layers=2, num_heads=4,
+                     intermediate_size=128, dtype=torch.float32)
+    lr = 1e-3
+    rng = np.random.default_rng(5)
+    if kind == "contrastive":
+        make, build = tt.make_train_state, lambda dev: tt.contrastive_train_step(dev)
+        init = init_module(BertEncoder(cfg), 3).state_dict()
+        batches = [{f"{s}_{n}": (rng.integers(1, 300, (r, 24)).astype(np.int32) if n == "ids"
+                                 else np.ones((r, 24), np.int32))
+                    for s, r in (("q", 8), ("d", 8), ("n", 16)) for n in ("ids", "mask")}
+                   for _ in range(3)]
+    else:
+        make = tt.make_ce_train_state
+        build = lambda dev: tt.cross_encoder_train_step(dev, group=4)  # noqa: E731
+        init = init_module(CrossEncoderModel(cfg), 3).state_dict()
+        batches = [{"ids": rng.integers(1, 300, (16, 32)).astype(np.int32),
+                    "mask": np.ones((16, 32), np.int32),
+                    "type_ids": np.repeat([[0] * 12 + [1] * 20], 16, 0).astype(np.int32),
+                    "labels": np.tile([1, 0, 0, 0], 4).astype(np.int32)} for _ in range(3)]
+    runs = []
+    for dev in ("cpu", card):
+        state = make(cfg, lr, schedule_steps=20, init_params_tree=init, device=dev)
+        step, place = build(dev)
+        losses = []
+        for b in batches:
+            state, met = step(state, place(b))
+            losses.append(met["loss"].item())
+        runs.append((losses, {k: v.cpu() for k, v in state.params.items()}))
+    np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-4)
+    for name, ref in runs[0][1].items():
+        zero = name.endswith("attention.key.bias") or (kind == "ce_listwise"
+                                                       and name == "classifier.bias")
+        torch.testing.assert_close(runs[1][1][name], ref, rtol=0,
+                                   atol=3 * lr if zero else 2e-5, msg=name)

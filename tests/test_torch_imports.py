@@ -31,7 +31,7 @@ new = {"config", "index.base", "index.doc", "index.docstore", "index.factory",
        "agents.rerank", "agents.planning", "agents.strategy_memory", "agents.query_processing",
        "agents.context_eval", "agents.summarization", "agents.synthesis", "agents.critic",
        "agents.multihop", "agents.fact_verification", "agents.citation", "agents.tools",
-       "utils.conversation"}
+       "utils.conversation", "parallel.train", "parallel.checkpoint"}
 assert {"radiant_rag_tpu_torch." + m for m in new} <= set(names), names
 import torch
 assert not torch.cuda.is_available()
@@ -44,7 +44,13 @@ from radiant_rag_tpu_torch.models.cross_encoder import CrossEncoder
 from radiant_rag_tpu_torch.models.embedder import Embedder
 from radiant_rag_tpu_torch.models.registry import LocalNLPModels
 from radiant_rag_tpu_torch.app import RadiantTPU
-for make in (lambda: DeviceVectorIndex(64), lambda: BM25Index(),
+from radiant_rag_tpu_torch.models.bert import BertConfig
+from radiant_rag_tpu_torch.parallel import data, train
+tiny = BertConfig(vocab_size=64, hidden_size=8, num_layers=1, num_heads=2, intermediate_size=16)
+for make in (lambda: train.make_train_state(tiny), lambda: train.make_ce_train_state(tiny),
+             lambda: train.contrastive_train_step(), lambda: train.cross_encoder_train_step(),
+             lambda: data.train_cross_encoder(["a b c"], bert_cfg=tiny, steps=2),
+             lambda: DeviceVectorIndex(64), lambda: BM25Index(),
              lambda: DeviceVectorIndex(64, device="cuda"), lambda: TpuVectorStore(64),
              lambda: create_vector_store(config_from_dict({})),
              lambda: PersistentBM25Index(None), lambda: Embedder(), lambda: CrossEncoder(),

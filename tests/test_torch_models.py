@@ -155,17 +155,44 @@ def test_embedder_batching_and_cache():
     assert temb.embed([]).shape == (0, 32)
 
 
-def test_embedder_refuses_a_checkpoint_it_cannot_restore(tmp_path):
+@pytest.mark.parametrize("case", ["empty", "foreign step", "port step", "other shapes",
+                                  "explicit params"])
+def test_embedder_refuses_a_checkpoint_it_cannot_restore(tmp_path, case):
+    """checkpoint_dir: an empty directory is ignored; a port checkpoint
+    (`parallel/checkpoint.py`) is restored; a step directory the port did
+    not write (an orbax one of the JAX package) raises NotImplementedError
+    naming the conversion; a checkpoint of other shapes raises; explicit
+    params win, as in the JAX package."""
+    from radiant_rag_tpu_torch.convert import params_to_flat
+    from radiant_rag_tpu_torch.parallel.checkpoint import TrainCheckpointer
+
     ckpt = tmp_path / "embedder_ckpt"
     ckpt.mkdir()
     cfg = EmbeddingConfig(preset="none", dim=32, num_layers=1, num_heads=4, hidden_dim=64,
                           vocab_size=300, checkpoint_dir=str(ckpt))
-    Embedder(cfg, device="cpu")  # an empty directory holds nothing to serve
-    (ckpt / "0").mkdir()
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        Embedder(cfg, device="cpu")
-    Embedder(cfg, params=init_params(BertConfig(**{**SMALL, "num_layers": 1}), seed=0),
-             device="cpu")  # explicit params win, as in the JAX package
+    one = BertConfig(**{**SMALL, "num_layers": 1})
+    trained = init_params(one, seed=5)
+    if case == "empty":
+        emb = Embedder(cfg, device="cpu")  # an empty directory holds nothing to serve
+        assert not torch.equal(emb.model.state_dict()["word_emb.weight"],
+                               trained["word_emb.weight"])
+    elif case == "foreign step":
+        (ckpt / "0").mkdir()
+        with pytest.raises(NotImplementedError, match="embedder_checkpoint_from_jax"):
+            Embedder(cfg, device="cpu")
+    elif case in ("port step", "explicit params"):
+        TrainCheckpointer(str(ckpt)).save_arrays(7, params_to_flat(BertEncoder(one), trained))
+        explicit = init_params(one, seed=0) if case == "explicit params" else None
+        emb = Embedder(cfg, params=explicit, device="cpu")
+        want = explicit if explicit is not None else trained
+        for key, value in want.items():
+            assert torch.equal(emb.model.state_dict()[key], value), key
+    else:
+        wide = BertConfig(**{**SMALL, "num_layers": 1, "intermediate_size": 48})
+        TrainCheckpointer(str(ckpt)).save_arrays(
+            3, params_to_flat(BertEncoder(wide), init_params(wide, seed=5)))
+        with pytest.raises(ValueError, match="does not fit"):
+            Embedder(cfg, device="cpu")
 
 
 def _cross_encoders(dtype):

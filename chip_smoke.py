@@ -74,6 +74,22 @@ seed: 1M docs of clustered 384-d vectors and zipfian 48-token texts):
            Embedder that embeds as the swapped encoder, the calibration
            run again, and kernel rows at the mining's shapes.
 
+  phase 10 the corpus-sharded pod store over phase 7's corpus (after phase
+           9): `create_vector_store` with `index.backend: sharded` and
+           `index.docstore: spill` (a mesh of every visible card, one
+           shard here), its source filled by the load path from phase 7's
+           store and docstore (migrated into the spill log), `RadiantTPU`
+           over it; app.search_batch at buckets 1 to 2048 held against the
+           plain kernels, the dense leg's recall, 4 logical shards of one
+           card (exact mode against the single-device search, both legs
+           against the plain kernels per shard), 16,384 chunks ingested into
+           the delta segment (held against a host oracle of base + delta),
+           tombstones and a rebase (held against a freshly built pod), 16
+           app.query runs, /search under 256 clients, a one-rank NCCL group's
+           merge, and the spill docstore's hydration, hit share, save and
+           load; its kernel rows are the pod's shapes at N = rows_per_shard
+           for 1 and 4 shards.
+
 Prints the card's name and power limit, the phases' numbers, one
 {"kernels": [...]} JSON line, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -179,7 +195,8 @@ def make_corpus(rng: np.random.Generator, n: int):
     vecs = centers[assign] + 0.7 * rng.standard_normal((n, DIM)).astype(np.float32)
     vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
     zipf = rng.zipf(1.3, size=(n, 48)) % 30_000
-    texts = [" ".join(f"w{t}" for t in row) for row in zipf]
+    words = [f"w{t}" for t in range(30_000)]
+    texts = [" ".join(map(words.__getitem__, row)) for row in zipf.tolist()]
     return vecs, texts
 
 
@@ -310,15 +327,18 @@ def blockmax_row(ck, label, codes, qi, mask):
 
 def hamming_scan_row(ck, label, codes, qwords, mask, k, csign):
     """A hamming_scan_topk row; `csign` is the codes' +-1 sign matrix, the
-    library yardstick's operand (<s_q, s_c> = 32 W - 2 hamming)."""
+    library yardstick's operand (<s_q, s_c> = 32 W - 2 hamming). At B <= 16
+    the yardstick's queries are zero-padded to 17, as in scan_rows."""
     import torch
 
     n, w = codes.shape
     b = qwords.shape[0]
     qsign = ck.sign_matrix(qwords)
+    if b <= 16:
+        qsign = torch.nn.functional.pad(qsign, (0, 0, 0, 17 - b))
 
     def library_mm():
-        sc = torch._int_mm(qsign, csign.T)
+        sc = torch._int_mm(qsign, csign.T)[:b]
         return sc.masked_fill_(~mask[None, :], torch.iinfo(torch.int32).min)
 
     return kernel_row("hamming_scan_topk", label, ck.hamming_scan_topk,
@@ -797,9 +817,10 @@ def main() -> int:
     launches = {fn.__name__: 0 for fn in ck.KERNELS}
     shape_launches = {}  # (kernel, D or W, k or 0, B) -> main-path launches
 
-    def main_path(fn):
+    def main_path(fn, tag=()):
         """Drive a main path once: every count set to 0 just before, read
-        just after. Returns (its output, its launches by kernel, seconds)."""
+        just after. Returns (its output, its launches by kernel, seconds).
+        `tag` extends this run's shape keys (phase 10's pod rows)."""
         ck.reset_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -810,6 +831,7 @@ def main() -> int:
         for name, n in delta.items():
             launches[name] += n
         for key, n in ck.launches_by_shape.items():
+            key = key + tuple(tag)
             shape_launches[key] = shape_launches.get(key, 0) + n
         return out, delta, dt
 
@@ -1847,6 +1869,10 @@ def phase_serving(ck, main_path, vecs, texts, smi, known_keys):
         "coalescer": serving, "batches": n_batches_load, "mean_batch": float(np.mean(sizes)),
         "profiled_window_s": t_prof[0], "idle_share": idle, "batch_api_ms": api_ms[1], "split_ms": split,
         "resolve_fused_rows_2048_ms": ms_hydrate_2k, "dense_recall_at_10": recall}))
+    t10 = time.perf_counter()
+    rows += phase_pod(ck, main_path, app, vecs, texts, smi, d,
+                      set(known_keys) | {row["_key"] for row in rows})
+    log(f"phase 10: {time.perf_counter() - t10:.1f} s")
     del app, store, models, searcher, res, res2k, qdev, qdev2k
     tmp.cleanup()
     return rows
@@ -2777,6 +2803,701 @@ def phase_training(ck, main_path, app, texts, smi, tmp_dir: Path):
                                           "resident_gib": resident / 2**30}))
     return launched, mining_queries
 
+
+
+# phase 10: the corpus-sharded pod store (index.backend: sharded) with the
+# spill docstore, over phase 7's corpus
+POD_BUCKETS = (1, 8, 64, 256, 2048)  # search_batch on one shard at each query bucket
+POD_LOGICAL_SHARDS = 4  # the merge check: 4 logical shards on one card
+POD_CHECK_B = 256  # the 4-shard, delta, tombstone and rebase checks' batch
+POD_DELETES = 32  # base rows tombstoned
+POD_AGENTIC_RUNS = 16
+POD_CLIENTS = 256
+POD_REQUESTS = 4  # /search requests per client
+
+
+class PlainKernels:
+    """Inside the block every kernel wrapper is its plain PyTorch version,
+    on the same (card) tensors: the search runs again without a kernel
+    (and counts no launch)."""
+
+    NAMES = ("int8_scan_topk", "blockmax2", "hamming_scan_topk", "hamming_scores",
+             "hamming_scores_t", "int8_scores")
+
+    def __init__(self, ck):
+        self.ck = ck
+        self.saved = {}
+
+    def __enter__(self):
+        for n in self.NAMES:
+            self.saved[n] = getattr(self.ck, n)
+            setattr(self.ck, n, getattr(self.ck, n + "_reference"))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.ck, n, fn)
+
+
+class SpillCounter:
+    """Counts a spill docstore's get() calls and the content reads behind
+    them (the LRU's misses), for the hit share."""
+
+    def __init__(self, spill):
+        self.spill, self.gets, self.reads = spill, 0, 0
+        get0, read0 = spill.get, spill._read_record
+
+        def get(doc_id):
+            self.gets += 1
+            return get0(doc_id)
+
+        def read(*a):
+            self.reads += 1
+            return read0(*a)
+
+        spill.get, spill._read_record = get, read
+
+    def remove(self):
+        del self.spill.get, self.spill._read_record
+
+    def hit_share(self) -> float:
+        return 1.0 - self.reads / max(self.gets, 1)
+
+
+def vm_rss() -> int:
+    """This process's resident host memory, bytes (/proc/self/status)."""
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def doc_bytes(docstore, sample: int = 4096) -> float:
+    """Host bytes per doc of a docstore's Python objects, from a sample of
+    its docs (sys.getsizeof of the content, meta and map entries): an
+    estimate, not a measurement of the process."""
+    ids = list(docstore.id_to_row)[:: max(1, len(docstore.id_to_row) // sample)][:sample]
+    total = 0
+    for doc_id in ids:
+        total += sys.getsizeof(doc_id) + 2 * 8 + 2 * 28  # id, map slots, two ints
+        if hasattr(docstore, "_loc"):
+            total += sys.getsizeof(docstore._loc[doc_id]) + 3 * 28
+        else:
+            doc = docstore.docs[doc_id]
+            total += (sys.getsizeof(doc) + sys.getsizeof(doc.content) + sys.getsizeof(doc.meta)
+                      + sum(sys.getsizeof(k) + sys.getsizeof(v) for k, v in doc.meta.items()))
+    return total / max(len(ids), 1)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def legs_equal(a, b, what):
+    """Two row-space results ({'dense'|'bm25'|'fused': (scores, rows)}),
+    exactly equal."""
+    for leg in ("dense", "bm25", "fused"):
+        check(np.array_equal(a[leg][1], b[leg][1]) and np.array_equal(a[leg][0], b[leg][0]),
+              f"{what}: {leg} differs")
+
+
+def rows_close(got, want, what, rtol=1e-5, atol=1e-6):
+    """(scores, rows) equal up to fp32 summation order: scores within the
+    tolerance of tests/_torch_parity.py, a row out of place only as a swap
+    of two rows tied within it."""
+    (gs, gr), (ws, wr) = got, want
+    check(np.allclose(gs, ws, rtol=rtol, atol=atol), f"{what}: scores differ")
+    for q, slot in zip(*np.nonzero(gr != wr)):
+        other = np.nonzero(wr[q] == gr[q, slot])[0]
+        check(len(other) == 1 and gr[q, other[0]] == wr[q, slot]
+              and abs(ws[q, slot] - ws[q, other[0]]) <= atol + rtol * abs(ws[q, slot]),
+              f"{what}: rows differ at query {q}")
+
+
+def merge_oracle(base, delta, k, tombstones):
+    """Host oracle of a leg's base + delta merge: the live pairs of both
+    runs, tombstoned base rows dropped, by score descending (ties in run
+    order), the first k."""
+    bs, bi = base
+    out_s = np.full((bi.shape[0], k), -np.inf, np.float32)
+    out_i = np.full((bi.shape[0], k), -1, np.int64)
+    for q in range(bi.shape[0]):
+        pairs = [(float(s), int(r)) for s, r in zip(bs[q], bi[q])
+                 if r >= 0 and int(r) not in tombstones]
+        if delta is not None:
+            pairs += [(float(s), int(r)) for s, r in zip(delta[0][q], delta[1][q]) if r >= 0]
+        pairs = sorted(pairs, key=lambda p: -p[0])[:k]  # stable: run order among ties
+        for j, (s, r) in enumerate(pairs):
+            out_s[q, j], out_i[q, j] = s, r
+    return out_s, out_i
+
+
+def pod_kernel_rows(ck, idx, shards, keys, qvecs, qtexts_, bm):
+    """Kernel rows at the pod's own shapes: for each (kernel, W or S, k, B,
+    "pod", shards) key a main path launched, the kernel over shard 0's
+    block of `idx` (N = rows_per_shard): the sign words against the batch's
+    packed query vectors, or the sketch against its query indicators."""
+    import torch
+
+    from radiant_rag_tpu_torch.ops import quantize as qz
+
+    dev = idx.shards[0]
+    qwords = qz.pack_binary(torch.from_numpy(qvecs / np.linalg.norm(qvecs, axis=1,
+                                                                    keepdims=True)).to(dev))
+    qind = torch.from_numpy(bm.make_query_indicator(qtexts_, bm.query_tids(qtexts_))).to(dev)
+    codes, sketch, mask = idx.codes[0], idx.sketch[0], idx.valid[0].clone()
+    csign = None
+    rows = []
+    for key in sorted(keys):
+        name, width, k, b = key[:4]
+        label = f"pod {shards} shard(s) N={idx.rows_per_shard} k={k} B={b}"
+        if name == "hamming_scan_topk" and width == codes.shape[1]:
+            csign = ck.sign_matrix(codes) if csign is None else csign
+            rows.append(hamming_scan_row(ck, f"W={width} {label}", codes,
+                                         qwords[:b].contiguous(), mask, k, csign))
+        elif name == "int8_scan_topk" and width == sketch.shape[1]:
+            rows.append(scan_rows(ck, f"sketch S={width} {label}", sketch,
+                                  qind[:b].contiguous(), mask, k))
+        else:
+            raise AssertionError(f"the pod launched {name} at {key}, which no row covers")
+        rows[-1]["_key"] = key  # the pod's tagged key
+    return rows
+
+
+def phase_pod(ck, main_path, app7, vecs, texts, smi, d, known_keys, card=None):
+    """Phase 10: the corpus-sharded pod store at MiniLM-L12 width over
+    phase 7's corpus (1,016,384 rows): `create_vector_store` with
+    `index.backend: sharded` and `index.docstore: spill` (a mesh of every
+    visible card: one shard here), its source filled from phase 7's store
+    by the load path (`DeviceVectorIndex.from_host`, and `load_docstore`'s
+    migration loop into the spill log), then `RadiantTPU` over it. Checks
+    (1) one shard at 5 query buckets against the plain kernels, and the
+    dense leg's recall; (2) 4 logical shards; (3) the delta segment,
+    tombstones and a rebase; (4) 16 agentic runs; (5) /search under 256
+    clients; (6) a one-rank NCCL group's merge; (7) the spill docstore's
+    numbers. Returns the pod's kernel rows and the rows of other shapes it
+    launched that `known_keys` lacks."""
+    import http.client
+    import os
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    from radiant_rag_tpu_torch.agents.base_agent import DeviceStageError
+    from radiant_rag_tpu_torch.app import RadiantTPU
+    from radiant_rag_tpu_torch.config import config_from_dict
+    from radiant_rag_tpu_torch.index.docstore import SpillDocStore
+    from radiant_rag_tpu_torch.index.engine import DeviceVectorIndex
+    from radiant_rag_tpu_torch.index.factory import create_vector_store
+    from radiant_rag_tpu_torch.index.hybrid import resolve_fused_depth
+    from radiant_rag_tpu_torch.ingestion.processor import IngestedChunk
+    from radiant_rag_tpu_torch.llm.backends import MockLLMBackend
+    from radiant_rag_tpu_torch.llm.client import LLMClient
+    from radiant_rag_tpu_torch.ops import quantize as qz
+    from radiant_rag_tpu_torch.parallel import multihost
+    from radiant_rag_tpu_torch.parallel.mesh import create_mesh, mesh_info
+    from radiant_rag_tpu_torch.parallel.sharded_index import ShardedHybridIndex, merge_topk
+    from radiant_rag_tpu_torch.parallel.sharded_store import ShardedVectorStore, _host_fuse
+    from radiant_rag_tpu_torch.server import hit_dicts, make_server
+
+    card = torch.device("cuda", 0) if card is None else torch.device(card)
+    store7, models = app7.store, app7.local_models
+    pod_dir = d / "pod"
+    cfg = config_from_dict({
+        "embedding": {**MINILM_PRESET["embedding"], "checkpoint_dir": str(d / "embedder_ckpt")},
+        "index": {"backend": "sharded", "docstore": "spill", "data_dir": str(pod_dir / "index"),
+                  "auto_persist": False},
+        "bm25": {"index_path": str(pod_dir / "bm25.json.gz")},
+        "strategy_memory": {"path": str(pod_dir / "strategy_memory.json.gz")},
+        "conversation": {"data_dir": str(pod_dir / "conversations")}})
+    r, q = cfg.retrieval, cfg.quantization
+    fd = resolve_fused_depth(r)
+    check((fd, round(fd * q.rescore_multiplier), cfg.index.docstore_cache_docs)
+          == (60, SERVE_KC, 50_000), "phase 10 config")
+    timings, numbers, keys_by_tag, other_keys = {}, {}, {}, set()
+    plain = PlainKernels(ck)
+
+    def tagged(fn, shards):
+        out, delta, dt = main_path(fn, tag=("pod", shards))
+        keys_by_tag.setdefault(shards, set()).update(
+            k + ("pod", shards) for k in ck.launches_by_shape)
+        return out, delta, dt
+
+    def untagged(fn):
+        out, delta, dt = main_path(fn)
+        other_keys.update(ck.launches_by_shape)
+        return out, delta, dt
+
+    # -- the pod app over phase 7's corpus ---------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pod = create_vector_store(cfg, device=card)
+    check(isinstance(pod, ShardedVectorStore)
+          and mesh_info(pod.mesh) == {"data": torch.cuda.device_count() if card.type == "cuda"
+                                      else 1, "model": 1}, f"phase 10 mesh {pod.mesh}")
+    src = pod.source
+    spill = src.docstore
+    check(isinstance(spill, SpillDocStore) and len(spill) == 0, "phase 10 spill docstore")
+    state = store7.engine.to_host()
+    src.engine = DeviceVectorIndex.from_host(state, initial_capacity=store7.engine.capacity,
+                                             stage1_select=src.index_config.stage1_select,
+                                             device=card)
+    src.lang_codes = dict(store7.lang_codes)
+    torch.cuda.synchronize()
+    timings["engine_from_host_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    rss0 = vm_rss()
+    for doc in store7.docstore:  # load_docstore's migration loop
+        spill.put(doc, row=store7.docstore.id_to_row.get(doc.doc_id))
+    spill.save()
+    timings["spill_migration_s"] = time.perf_counter() - t1
+    numbers["spill_rss_growth_migration_bytes"] = vm_rss() - rss0
+    n_docs = store7.count_documents()
+    check(len(spill) == n_docs and src.count_documents() == n_docs, "migration count")
+    questions = list(dict.fromkeys(" ".join(texts[i].split()[:QUESTION_WORDS])
+                                   for i in np.random.default_rng(SEED + 20).integers(
+                                       0, N_DOCS, 4 * POD_AGENTIC_RUNS)))[:POD_AGENTIC_RUNS]
+    llm = LLMClient(cfg.llm, backend=MockLLMBackend(responder=ScriptedLLM(questions)))
+    t1 = time.perf_counter()
+    app = RadiantTPU(cfg, llm=llm, store=pod, local_models=models, device=card)
+    torch.cuda.synchronize()
+    timings["app_bm25_build_and_shard_s"] = time.perf_counter() - t1
+    timings["build_s"] = time.perf_counter() - t0
+    bm = app.bm25_index.index
+    base = pod._hybrid
+    check(base is not None and pod._base_rows == src.engine.count == state["vecs"].shape[0]
+          and bm.num_docs == src.engine.count, "phase 10 base")
+    per = base.rows_per_shard
+    log(f"phase 10 build: {timings['build_s']:.1f} s (engine from host "
+        f"{timings['engine_from_host_s']:.1f} s; spill migration of {n_docs} docs "
+        f"{timings['spill_migration_s']:.1f} s; RadiantTPU with the BM25 index built from the "
+        f"spill store and the base sharded {timings['app_bm25_build_and_shard_s']:.1f} s); "
+        f"mesh {mesh_info(pod.mesh)}, {pod._base_rows} rows, rows_per_shard {per}, sketch "
+        f"S={base.sketch_dim}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    counter = SpillCounter(spill)
+
+    # the first search's calibration over the source engine, carried to the pod
+    orch = app.orchestrator
+    _, d_cal, t_cal = untagged(lambda: orch.calibrate_pod_fusion())
+    hy = orch._hybrid
+    check(hy is not None and not orch._hybrid_serves and hy.engine is src.engine
+          and hy.last_calibration is not None and "skipped" not in hy.last_calibration,
+          f"phase 10 calibration: {hy.last_calibration}")
+    check(pod._fusion_mode == hy.fusion_mode == base.fusion_mode
+          and np.array_equal(pod._fusion_weights, hy.leg_weights), "set_fusion did not reach the pod")
+    log(f"phase 10 calibration over the source engine: {t_cal:.1f} s, mode {hy.fusion_mode}, "
+        f"weights {hy.leg_weights.tolist()}; launches {d_cal}")
+
+    # -- (1) one shard, through app.search_batch at each bucket ----------------
+    qrng = np.random.default_rng(SEED + 21)
+    pool = list(dict.fromkeys(" ".join(texts[i].split()[:6])
+                              for i in qrng.integers(0, N_DOCS, 12_000)))
+    kw = dict(top_k=TOP_K, fused_k=TOP_K, rrf_k=r.rrf_k, fused_depth=fd)
+    bucket_ms = {}
+    off = 0
+    for b in POD_BUCKETS:
+        qs = pool[off:off + b]
+        off += b
+        hits, dl, dt = tagged(lambda qs=qs: app.search_batch(qs, use_cache=False), 1)
+        check(dl["hamming_scan_topk"] == 1 and dl["int8_scan_topk"] == 1,
+              f"launches at B={b}: {dl}")
+        bucket_ms[b] = dt * 1e3
+        embs = models.embed(qs)
+        got = pod.search_hybrid_rows(embs, qs, **kw)
+        with plain:
+            want = pod.search_hybrid_rows(embs, qs, **kw)
+        legs_equal(got, want, f"phase 10 one shard B={b} (kernels vs plain)")
+        check([_docs(h) for h in hits] == [_docs(h) for h in pod._hydrate(*got["fused"])],
+              f"phase 10 B={b}: search_batch hits differ from the pod's fused rows")
+        check(all(hits) and (got["dense"][1][:, 0] >= 0).all(), f"B={b}: empty results")
+    numbers["ms_per_batch"] = bucket_ms
+    top = POD_BUCKETS[-1]
+    numbers["qps_top_bucket"] = top / (bucket_ms[top] / 1e3)
+    log(f"phase 10 one shard, app.search_batch (hybrid, top_k {TOP_K}, fused depth {fd}: "
+        f"kc {SERVE_KC} on both legs) ms per batch: {json.dumps(bucket_ms)}; "
+        f"{numbers['qps_top_bucket']:.1f} QPS at {top}; every leg equals the plain kernels' "
+        "search")
+
+    qs = pool[off:off + POD_CHECK_B]
+    off += POD_CHECK_B
+    embs = models.embed(qs)
+
+    def split_ms(fn, n=3):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(out))
+
+    res = pod.search_hybrid_rows(embs, qs, **kw)
+    split = {"embed": split_ms(lambda: models.embed(qs)),
+             "base_search": split_ms(lambda: base.hybrid_search(
+                 embs, qs, dense_k=fd, bm25_k=fd, fused_k=TOP_K, rrf_k=r.rrf_k)),
+             "search_hybrid_rows": split_ms(lambda: pod.search_hybrid_rows(embs, qs, **kw)),
+             "hydrate": split_ms(lambda: pod._hydrate(*res["fused"]))}
+    numbers["split_ms_b256_pure_base"] = split
+    idle = profile_batch(lambda: app.search_batch(pool[off:off + POD_CHECK_B], use_cache=False),
+                         f"phase 10: one pod search_batch of {POD_CHECK_B}")
+    off += POD_CHECK_B
+    numbers["idle_share_b256"] = idle
+    log(f"phase 10 one batch of {POD_CHECK_B}, each stage alone (ms): {json.dumps(split)}")
+
+    # the dense leg's recall at query noise 0.05, against exact fp32 and
+    # against what its binary stage 1 (kc 240) allows
+    lrng = np.random.default_rng(SEED + 22)
+    lidx = lrng.integers(0, N_DOCS, BATCH)
+    qlow = vecs[lidx] + LOW_NOISE * lrng.standard_normal((BATCH, DIM)).astype(np.float32)
+    qlow /= np.linalg.norm(qlow, axis=1, keepdims=True)
+    tlow = [" ".join(texts[i].split()[:6]) for i in lidx]
+    dense = base.hybrid_search(qlow, tlow, dense_k=fd, bm25_k=fd, fused_k=TOP_K)["dense"][1]
+    eng = src.engine
+    exact = exact_top10(eng.vecs[:eng.count], qlow, eng.valid[:eng.count])
+    _, cand = ck.hamming_scan_topk_reference(
+        base.codes[0], qz.pack_binary(torch.from_numpy(qlow).to(card)), base.valid[0], SERVE_KC)
+    allowed = recall_at_10(stage1_rescored_top10(state["vecs"], qlow, cand), exact)
+    recall = recall_at_10(dense[:, :TOP_K], exact)
+    numbers["dense_recall_at_10_noise_0.05"] = recall
+    numbers["stage1_allows"] = allowed
+    log(f"phase 10 dense leg recall@10 at query noise {LOW_NOISE} vs exact fp32 over "
+        f"{eng.count} rows: {recall:.4f} (its binary stage 1 at kc {SERVE_KC} + exact rescore "
+        f"allows {allowed:.4f})")
+    check(recall >= allowed - 0.01 and recall >= MIN_LOW_NOISE_RECALL,
+          f"pod recall@10 {recall} (allowed {allowed})")
+    del cand, exact
+
+    # -- (2) four logical shards over the same rows -----------------------------
+    mesh4 = create_mesh(POD_LOGICAL_SHARDS, 1, devices=[card] * POD_LOGICAL_SHARDS)
+    t1 = time.perf_counter()
+    idx4 = ShardedHybridIndex(mesh4, state["vecs"], bm, valid=state["valid"],
+                              level=state["level"], lang=state["lang"],
+                              table_rows=eng.capacity)
+    idx4.set_fusion(pod._fusion_mode, pod._fusion_weights)
+    torch.cuda.synchronize()
+    timings["four_shard_build_s"] = time.perf_counter() - t1
+    q4 = np.asarray(embs, np.float32)
+    ex4 = idx4.search(q4, TOP_K, mode="exact")
+    ex1 = eng.search(q4 / np.linalg.norm(q4, axis=1, keepdims=True), TOP_K, mode="exact")
+    rows_close(ex4, ex1, "phase 10 four shards exact vs the single-device exact search")
+    res4, d4, t4 = tagged(lambda: idx4.hybrid_search(q4, qs, dense_k=fd, bm25_k=fd,
+                                                     fused_k=TOP_K, rrf_k=r.rrf_k), 4)
+    check(d4["hamming_scan_topk"] == POD_LOGICAL_SHARDS
+          and d4["int8_scan_topk"] == POD_LOGICAL_SHARDS, f"four-shard launches {d4}")
+    with plain:
+        want4 = idx4.hybrid_search(q4, qs, dense_k=fd, bm25_k=fd, fused_k=TOP_K, rrf_k=r.rrf_k)
+    legs_equal(res4, want4, "phase 10 four shards (kernels vs plain per shard)")
+    rows4 = pod_kernel_rows(ck, idx4, POD_LOGICAL_SHARDS, keys_by_tag[POD_LOGICAL_SHARDS],
+                            q4, qs, bm)
+    numbers["four_shard_ms_b256"] = t4 * 1e3
+    log(f"phase 10 four logical shards (rows_per_shard {idx4.rows_per_shard}, build "
+        f"{timings['four_shard_build_s']:.1f} s): exact mode equals the single-device exact "
+        f"search; hybrid at B={POD_CHECK_B} {t4 * 1e3:.1f} ms, every leg equals the plain "
+        f"per-shard computation; launches {d4}")
+    del idx4, want4, res4
+    torch.cuda.empty_cache()
+
+    # -- (3) the delta segment, tombstones, a rebase -----------------------------
+    crng = np.random.default_rng(SEED + 23)
+    chunks = [IngestedChunk(" ".join(f"w{t}" for t in row), {"source": f"pod/chunk{i}"})
+              for i, row in enumerate(crng.zipf(1.3, size=(INGEST_CHUNKS, 48)) % 30_000)]
+    base_rows = pod._base_rows
+    stats, d_ing, t_ing = untagged(lambda: app.ingest_chunks(chunks))
+    check(stats["chunks_ingested"] == INGEST_CHUNKS and pod.delta_size == INGEST_CHUNKS
+          and pod._base_rows == base_rows and pod._hybrid is base,
+          f"phase 10 ingest: {stats}, delta {pod.delta_size}")
+    timings["ingest_s"] = t_ing
+    t1 = time.perf_counter()
+    before = {p.name: p.stat().st_size for p in spill.dir.iterdir()}
+    spill.save()
+    timings["spill_save_s"] = time.perf_counter() - t1
+    after = {p.name: p.stat().st_size for p in spill.dir.iterdir()}
+    log_bytes = sum(v for k, v in after.items() if k.startswith("content-"))
+    idx_new = sum(v for k, v in after.items() if k.startswith("idx-") and k not in before)
+    numbers["spill_save_index_bytes"] = idx_new
+    numbers["spill_log_bytes"] = log_bytes
+    log(f"phase 10 ingest_chunks of {INGEST_CHUNKS} chunks into the delta segment: "
+        f"{t_ing:.1f} s; spill save after it {timings['spill_save_s']:.2f} s, {idx_new} bytes "
+        f"of index delta against a {log_bytes}-byte content log; launches {d_ing}")
+
+    own = [c.content for c in chunks[:64]]
+    hits, d_own, _ = untagged(lambda: app.search_batch(own, use_cache=False))
+    found = sum(any(doc.content == t for doc, _s in h) for t, h in zip(own, hits))
+    check(found == len(own), f"only {found} of {len(own)} ingested chunks found by their text")
+    embs_own = models.embed(own)
+    got = pod.search_hybrid_rows(embs_own, own, **kw)
+    d_delta = pod._delta_dense(embs_own, fd)
+    s_delta = pod._delta_sparse(own, fd)
+    b_res = base.hybrid_search(embs_own, own, dense_k=fd, bm25_k=fd, fused_k=TOP_K,
+                               rrf_k=r.rrf_k)
+    check(d_delta is not None and s_delta is not None, "the delta answered nothing")
+    o_d = merge_oracle(b_res["dense"], d_delta, fd, set())
+    o_b = merge_oracle(b_res["bm25"], s_delta, fd, set())
+    for leg, o in (("dense", o_d), ("bm25", o_b)):
+        check(np.array_equal(got[leg][1], o[1]) and np.array_equal(got[leg][0], o[0]),
+              f"phase 10 delta: the merged {leg} leg differs from the host oracle")
+    fused_o = _host_fuse(o_d, o_b, TOP_K, r.rrf_k, pod._fusion_mode, pod._fusion_weights)
+    check(np.array_equal(got["fused"][1], fused_o[1]), "phase 10 delta: fused differs")
+    t_split = {"delta_dense": split_ms(lambda: pod._delta_dense(embs_own, fd)),
+               "delta_sparse": split_ms(lambda: pod._delta_sparse(own, fd)),
+               "host_fuse": split_ms(lambda: _host_fuse(o_d, o_b, TOP_K, r.rrf_k,
+                                                        pod._fusion_mode,
+                                                        pod._fusion_weights)),
+               "base_search": split_ms(lambda: base.hybrid_search(
+                   embs_own, own, dense_k=fd, bm25_k=fd, fused_k=TOP_K, rrf_k=r.rrf_k))}
+    numbers["split_ms_b64_with_delta"] = t_split
+    log(f"phase 10 delta: all {len(own)} ingested chunks found by their own text; the merged "
+        f"legs equal the host oracle of base + delta; one batch of {len(own)}, each stage "
+        f"alone (ms): {json.dumps(t_split)}; launches {d_own}")
+
+    dq = pool[off:off + POD_DELETES]
+    off += POD_DELETES
+    first = pod.search_hybrid_rows(models.embed(dq), dq, **kw)["fused"][1][:, 0]
+    doomed = sorted({int(x) for x in first if 0 <= x < pod._base_rows})
+    for row in doomed:
+        check(app.store.delete_doc(pod.id_for_row(row)), f"delete of row {row}")
+    check(pod._tombstones == set(doomed), "tombstones")
+    again = pod.search_hybrid_rows(models.embed(dq), dq, **kw)
+    for leg in ("dense", "bm25", "fused"):
+        check(not np.isin(again[leg][1], doomed).any(), f"a tombstoned row in the {leg} leg")
+    o_d = merge_oracle(base.hybrid_search(models.embed(dq), dq, dense_k=fd, bm25_k=fd,
+                                          fused_k=TOP_K, rrf_k=r.rrf_k)["dense"],
+                       pod._delta_dense(models.embed(dq), fd), fd, pod._tombstones)
+    check(np.array_equal(again["dense"][1], o_d[1]), "phase 10 tombstones: dense vs oracle")
+    _, d_ref, t_ref = untagged(lambda: pod.refresh())
+    timings["refresh_s"] = t_ref
+    check(pod.delta_size == 0 and not pod._tombstones and pod._base_rows == eng.count
+          and pod._hybrid is not base, "the rebase left a delta")
+    base = pod._hybrid
+    fresh = ShardedVectorStore(create_mesh(devices=[card]), src, bm25_index=bm)
+    fresh.set_fusion(pod._fusion_mode, pod._fusion_weights)
+    qf = pool[off:off + POD_CHECK_B]
+    off += POD_CHECK_B
+    ef = models.embed(qf)
+    legs_equal(pod.search_hybrid_rows(ef, qf, **kw), fresh.search_hybrid_rows(ef, qf, **kw),
+               "phase 10 rebased pod vs a freshly built pod")
+    del fresh
+    torch.cuda.empty_cache()
+    log(f"phase 10 tombstones: {len(doomed)} base rows deleted, none returned, the dense leg "
+        f"equals the host oracle; refresh (rebase of {pod._base_rows} rows) {t_ref:.1f} s, "
+        f"then equal to a freshly built pod store; launches {d_ref}")
+
+    # -- (4) the agentic path over the pod ----------------------------------------
+    # every pod retrieval of the runs (the first of each, and any retry's)
+    # is recorded with its queries and the fused docs it left in the context
+    walls, pod_calls = [], []
+    run_pod0 = orch._run_hybrid_pod
+
+    def run_pod(ctx, queries_):
+        run_pod0(ctx, queries_)
+        pod_calls.append((list(queries_), list(ctx.fused_docs)))
+
+    def run_all():
+        out = []
+        for qn in questions:
+            t = time.perf_counter()
+            out.append(app.query(qn, use_cache=False))
+            walls.append(time.perf_counter() - t)
+        return out
+
+    orch._run_hybrid_pod = run_pod
+    try:
+        results, d_ag, t_ag = untagged(run_all)
+    finally:
+        del orch._run_hybrid_pod
+    modes = {}
+    for res_ in results:
+        check(res_.success and not res_.degraded, f"phase 10 run {res_.query!r}: "
+              f"{res_.degraded}")
+        seq = "/".join(st["extra"]["mode"] for st in res_.metrics["steps"]
+                       if st["name"] == "retrieval")
+        modes[seq] = modes.get(seq, 0) + 1
+    check(len(pod_calls) >= len(results), f"{len(pod_calls)} pod retrievals in "
+          f"{len(results)} runs")
+    for eq, fused in pod_calls:
+        got_ = pod.search_hybrid(models.embed(eq), eq, top_k=max(r.dense_top_k, r.bm25_top_k),
+                                 fused_k=r.fused_top_k, rrf_k=r.rrf_k, return_legs=True,
+                                 fused_depth=fd)
+        runs = [run for run in got_["fused"] if run]
+        want = (orch.fusion.fuse(runs, top_k=r.fused_top_k) if len(runs) > 1
+                else runs[0][:r.fused_top_k])
+        check(_docs(fused) == _docs(want),
+              f"phase 10: a run's fused docs differ from store.search_hybrid of {eq!r}")
+    check(pod._fusion_mode == hy.fusion_mode and not orch.rerank_calibration,
+          "the calibration did not reach the pod, or the rerank probes ran on it")
+    numbers["agentic"] = {"runs": len(results), "p50_ms": _pct(walls, 0.5) * 1e3,
+                          "p99_ms": _pct(walls, 0.99) * 1e3, "pod_retrievals": len(pod_calls),
+                          "retrieval_modes": modes}
+    log(f"phase 10 agentic: {len(results)} app.query runs, wall p50 "
+        f"{numbers['agentic']['p50_ms']:.1f} ms, p99 {numbers['agentic']['p99_ms']:.1f} ms; "
+        f"retrieval modes per run {json.dumps(modes)}; the fused docs of all "
+        f"{len(pod_calls)} pod retrievals equal store.search_hybrid of their queries; "
+        f"launches {d_ag}")
+
+    # -- (5) /search through make_server at 256 clients ----------------------------
+    server = make_server(app, "127.0.0.1", 0)
+    port = server.server_address[1]
+    serve_thread = threading.Thread(target=server.serve_forever, daemon=True)
+    serve_thread.start()
+    coal = server.api._coalescer
+    dispatched = []
+    dispatch0 = coal.run_batch_async or coal.run_batch
+
+    def dispatch(key, items):
+        dispatched.append(list(items))
+        return dispatch0(key, items)
+
+    if coal.run_batch_async is not None:
+        coal.run_batch_async = dispatch
+    else:
+        coal.run_batch = dispatch
+    load_q = pool[off:off + POD_CLIENTS * POD_REQUESTS]
+    off += len(load_q)
+    results_http, errors = {}, []
+
+    def client(qs_):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            for q_ in qs_:
+                conn.request("POST", "/search", json.dumps({"query": q_, "top_k": TOP_K}),
+                             {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                results_http[q_] = (resp.status, json.loads(resp.read()))
+        except Exception as exc:  # reported below
+            errors.append(exc)
+        finally:
+            conn.close()
+
+    def load():
+        threads = [threading.Thread(target=client, daemon=True,
+                                    args=(load_q[i::POD_CLIENTS],)) for i in range(POD_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(not any(t.is_alive() for t in threads) and not errors, f"clients: {errors[:3]}")
+
+    _, d_http, t_http = tagged(load, 1)
+    server.shutdown()
+    server.server_close()
+    server.api.close()
+    serve_thread.join(timeout=30)
+    check(not serve_thread.is_alive(), "the phase 10 server thread did not stop")
+    bad = 0
+    for items in dispatched:
+        ref = app.search_batch(items, use_cache=False)
+        for q_, h in zip(items, ref):
+            status, body = results_http[q_]
+            bad += status != 200 or [(x["doc_id"], x["score"]) for x in body["hits"]] != _docs(h)
+    check(bad == 0 and len(results_http) == len(load_q),
+          f"{bad} /search responses differ from search_batch of their batch")
+    numbers["http"] = {"requests": len(load_q), "requests_per_s": len(load_q) / t_http,
+                       "batches": len(dispatched),
+                       "mean_batch": float(np.mean([len(x) for x in dispatched]))}
+    log(f"phase 10 /search: {POD_CLIENTS} clients x {POD_REQUESTS}: {len(load_q)} requests in "
+        f"{t_http:.2f} s = {len(load_q) / t_http:.1f} requests/s over {len(dispatched)} "
+        f"coalesced batches; every response equals search_batch of its batch; launches "
+        f"{d_http}")
+
+    # -- (6) a one-rank NCCL group: the cross-process merge ---------------------------
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    qm = pool[off:off + POD_CHECK_B]
+    off += POD_CHECK_B
+    em = np.asarray(models.embed(qm), np.float32)
+    q0, qc0 = base._queries(em / np.linalg.norm(em, axis=1, keepdims=True), POD_CHECK_B)
+    ds, di = base._dense_shard(0, q0, qc0, base.valid[0], fd, SERVE_KC, "binary")
+    t1 = time.perf_counter()
+    multi = multihost.initialize_multihost(f"127.0.0.1:{_free_port()}", 1, 0,
+                                           device=card if card.type == "cpu" else None)
+    try:
+        check(not multi and dist.is_initialized() and dist.get_world_size() == 1,
+              "one-rank group")
+        backend = dist.get_backend()
+        ms_, mi_ = multihost.merge_across_processes(ds, di, fd)
+        ss_, si_ = merge_topk([ds], [di], fd, ds.device)
+        check(torch.equal(ms_, ss_) and torch.equal(mi_, si_),
+              "the cross-process merge differs from the single-process merge")
+    finally:
+        dist.destroy_process_group()
+    timings["multihost_s"] = time.perf_counter() - t1
+    log(f"phase 10 multihost: a one-rank {backend} group over tcp://127.0.0.1 "
+        f"({timings['multihost_s']:.1f} s): all_gather_into_tensor + top-k of a {POD_CHECK_B}"
+        f"-query dense leg equals the single-process merge; two ranks wait for a second card")
+
+    # -- (7) the spill docstore -------------------------------------------------------
+    rows_h = pod.search_hybrid_rows(ef, qf, **kw)["fused"]
+    spill._cache.clear()
+    numbers["hydrate_ms_b256_cold"] = split_ms(lambda: pod._hydrate(*rows_h), n=1)
+    numbers["hydrate_ms_b256_warm"] = split_ms(lambda: pod._hydrate(*rows_h))
+    counter.remove()
+    numbers["lru_hit_share"] = counter.hit_share()
+    numbers["spill_gets"] = counter.gets
+    reads = []
+    read0 = SpillDocStore._read_record
+
+    def spy(self, *a):
+        reads.append(a)
+        return read0(self, *a)
+
+    spill.save()  # the deletes since the save after the ingest
+    SpillDocStore._read_record = spy
+    try:
+        rss0 = vm_rss()
+        t1 = time.perf_counter()
+        loaded = SpillDocStore.load(str(spill.dir))
+        timings["spill_load_s"] = time.perf_counter() - t1
+        numbers["spill_load_rss_growth_bytes"] = vm_rss() - rss0
+    finally:
+        SpillDocStore._read_record = read0
+    check(not reads and len(loaded) == len(spill), "the spill load read content bytes")
+    numbers["docstore_bytes_per_doc_estimate"] = {"in_ram": doc_bytes(store7.docstore),
+                                                  "spill": doc_bytes(loaded)}
+    del loaded
+    log(f"phase 10 spill docstore: hydration of a {POD_CHECK_B}-query batch's fused rows "
+        f"{numbers['hydrate_ms_b256_cold']:.1f} ms from a cold LRU, "
+        f"{numbers['hydrate_ms_b256_warm']:.1f} ms warm; LRU hit share over phase 10's "
+        f"{counter.gets} gets {numbers['lru_hit_share']:.3f}; load of {len(spill)} docs "
+        f"{timings['spill_load_s']:.2f} s reading no content bytes, host RSS growth "
+        f"{numbers['spill_load_rss_growth_bytes'] / 2**20:.1f} MiB; sampled host bytes per "
+        f"doc {json.dumps(numbers['docstore_bytes_per_doc_estimate'])} (in-RAM docstore of "
+        f"phase 7 / spill index)")
+
+    # a forced failure of the pod calibration raises out of the run
+    cal0 = hy.calibrate_fusion
+
+    def broken(*a, **k):
+        raise RuntimeError("forced calibration failure")
+
+    hy.invalidate_calibration()
+    hy.calibrate_fusion = broken
+    try:
+        app.query(questions[0], use_cache=False)
+        raise AssertionError("a failed pod calibration did not raise")
+    except DeviceStageError as exc:
+        check("forced calibration failure" in str(exc), str(exc))
+    finally:
+        hy.calibrate_fusion = cal0
+    log("phase 10: a forced failure of the pod calibration raises DeviceStageError out of "
+        "app.query")
+
+    rows = pod_kernel_rows(ck, base, 1, keys_by_tag[1], vecs[:BATCH], pool[:BATCH], bm)
+    rows += rows4
+    uncovered = sorted(other_keys - set(known_keys))
+    if uncovered:
+        qdev = torch.from_numpy(np.asarray(models.embed(pool[:BATCH]), np.float32)).to(card)
+        rows += path_rows(ck, eng, bm, qdev, pool[:BATCH], uncovered, "pod app's other paths")
+    numbers["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log("phase 10 summary: " + json.dumps({"device": smi, "timings_s": timings, **numbers}))
+    del app, pod, base, src, state
+    return rows
 
 if __name__ == "__main__":
     try:

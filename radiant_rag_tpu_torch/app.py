@@ -10,7 +10,10 @@ events), `simple_query` and conversations, and `train` (fine-tune the
 embedder on the corpus, then hot-swap it). Hybrid search is the fused
 `HybridSearcher.search_rows` over the store's engine, fed by the query
 embeddings on the device (`embed_queries_device` -> `_qdev`), at the
-calibrated fusion (`fusion_weighting: auto`).
+calibrated fusion (`fusion_weighting: auto`). Over a sharded pod store
+(`index.backend: sharded`) hybrid search is the store's own
+`search_hybrid` (per-shard kernels, merged legs, the delta segment), with
+the calibration over the source engine carried to it first.
 
 Card work is serialized by one lock, `device_lock`, which the server's
 search batches, /health's embed and every device stage of a pipeline run
@@ -41,7 +44,7 @@ from radiant_rag_tpu_torch import resolve_device
 from radiant_rag_tpu_torch.config import AppConfig, config_from_dict, load_config
 from radiant_rag_tpu_torch.index.bm25 import PersistentBM25Index
 from radiant_rag_tpu_torch.index.factory import create_vector_store
-from radiant_rag_tpu_torch.index.hybrid import embed_queries_device
+from radiant_rag_tpu_torch.index.hybrid import embed_queries_device, resolve_fused_depth
 from radiant_rag_tpu_torch.ingestion.processor import (
     ChunkSplitter, DocumentProcessor, IngestedChunk,
 )
@@ -85,6 +88,7 @@ class RadiantTPU:
         self.local_models = local_models
         self.bm25_index = PersistentBM25Index.from_config(self.store, self.config.bm25,
                                                           device=self.device)
+        self._attach_bm25()
         conv = self.config.conversation
         self.conversations = ConversationManager(
             max_turns=conv.max_turns, data_dir=conv.data_dir, ttl_s=conv.ttl_s,
@@ -429,13 +433,23 @@ class RadiantTPU:
     def _search_uncached(self, query: str, mode: str, top_k: int) -> Hits:
         return self._search_uncached_batch([query], mode, top_k)[0]
 
+    def _attach_bm25(self) -> None:
+        """A sharded pod store's base is built over the BM25 index, which
+        exists only after the factory ran: hand it (again after a rebuild
+        replaced it) to the store."""
+        if hasattr(self.store, "attach_bm25"):
+            self.store.attach_bm25(self.bm25_index.index)
+
     def _fused_searcher(self):
         """The fused hybrid searcher, refreshed for serving: the live BM25
         index and store engine, and calibrated when due (None when no
-        engine backs the store or it is empty)."""
-        if self.orchestrator._hybrid is None or self.store.count_documents() == 0:
+        engine backs the store, it is empty, or the searcher only
+        calibrates a pod store)."""
+        orch = self.orchestrator
+        if orch._hybrid is None or not orch._hybrid_serves or \
+                self.store.count_documents() == 0:
             return None
-        return self.orchestrator.refresh_fused_searcher()
+        return orch.refresh_fused_searcher()
 
     def _dispatch_fused(self, searcher, queries: List[str], top_k: int, fetch: bool = True):
         """Embed the batch on the device, padded to the engine's bucket, and
@@ -489,6 +503,14 @@ class RadiantTPU:
         if searcher is not None:
             res = self._dispatch_fused(searcher, queries, top_k)
             return self._resolve_fused_rows(res, len(queries))
+        if getattr(self.store, "can_hybrid", False):
+            # the pod path: the calibration over the source engine installs
+            # its mode and weights on the pod store first
+            self.orchestrator.calibrate_pod_fusion()
+            embs = self.local_models.embed(queries)
+            return self.store.search_hybrid(
+                embs, queries, top_k=top_k, fused_k=top_k, rrf_k=self.config.retrieval.rrf_k,
+                fused_depth=resolve_fused_depth(self.config.retrieval))
         embs = self.local_models.embed(queries)
         dense = self.store.retrieve_by_embedding_batch(embs, top_k=top_k)
         sparse = self.bm25_index.search_batch(queries, top_k=top_k)
@@ -499,11 +521,14 @@ class RadiantTPU:
     # admin
     # ------------------------------------------------------------------
     def rebuild_bm25_index(self) -> int:
-        return self.bm25_index.build_from_store()
+        n = self.bm25_index.build_from_store()
+        self._attach_bm25()  # a pod store shards its base again
+        return n
 
     def clear_index(self) -> None:
         self.store.drop_index()
         self.bm25_index.build_from_store()
+        self._attach_bm25()
         self.bm25_index.save()
         self.query_cache.clear()
         # persist the cleared state: else the saved index resurrects every

@@ -62,7 +62,7 @@ class IndexConfig:
     stage1_select: str = ""  # "" | f32 | bf16 | bf16_chunked | blockmax
     data_dir: str = "./data/index"
     auto_persist: bool = True
-    docstore: str = "memory"  # memory | spill (spill: ROADMAP A10)
+    docstore: str = "memory"  # memory | spill (content out of core)
     docstore_cache_docs: int = 50_000
 
 
@@ -408,7 +408,8 @@ class ConversationConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """Device mesh / sharding; read only by `index.backend: sharded`
-    (ROADMAP A12). Axis sizes of -1 mean "all remaining devices"."""
+    (`parallel/mesh.create_mesh`). Axis sizes of -1 mean "all remaining
+    devices"."""
 
     data_axis: int = -1
     model_axis: int = 1
@@ -485,15 +486,13 @@ _REMOTE = f"only the non-jax backends (llm/model_backends.py) read it, {_REST}"
 _LOCAL_LLM = ("only llm.backend 'local' reads it, which waits for causal-LM weights in the "
               f"repository, {_REST}")
 _WEB = f"web search and the crawlers are not ported yet, {_REST}"
-_PARALLEL = "the sharded corpus, ROADMAP queue A item 12"
 # Fields parsed for parity that the port has no behaviour for: a value
 # other than the default raises, with the reason. A section named by a
 # string has no behaviour in any field.
 _NOT_PORTED = {
     "index": {"metric": _NEITHER + " (cosine only)",
               "growth_factor": _NEITHER + " (the engine grows by CAPACITY_QUANTUM)",
-              "graph_degree": _GRAPH, "graph_ef_construction": _GRAPH,
-              "docstore_cache_docs": "the spill docstore, ROADMAP queue A item 10"},
+              "graph_degree": _GRAPH, "graph_ef_construction": _GRAPH},
     "quantization": {"int8_on_disk_only": _NEITHER},
     "embedding": {"backend": _REMOTE, "model_name": _REMOTE},
     "cross_encoder": {"backend": _REMOTE, "model_name": _NEITHER},
@@ -510,7 +509,7 @@ _NOT_PORTED = {
     "github": _WEB,
     "metrics": {"prometheus_enabled": _EXPORTER, "prometheus_port": _EXPORTER,
                 "otel_enabled": _EXPORTER, "otel_endpoint": _EXPORTER},
-    "mesh": {"shard_corpus": _PARALLEL, "dtype_compute": _NEITHER},
+    "mesh": {"shard_corpus": _NEITHER, "dtype_compute": _NEITHER},
     "report": f"the reports (ui/) are not ported yet, {_REST}; the JAX package reads "
               "no field of it either",
     "server": {"host": _NEITHER + " (the serve command's --host)",

@@ -1,8 +1,12 @@
 """Vector-store factory: the port's `create_vector_store` for the `tpu`
-(device engine) and `numpy` (host parity) backends.
+(device engine), `sharded` (corpus-sharded pod store) and `numpy` (host
+parity) backends.
 
-The `sharded` backend waits for the distributed slice (ROADMAP queue A
-item 12). Unlike the JAX package, a persisted index that fails to load
+`sharded` builds the `tpu` store from the config as its durable source and
+freezes its rows into a `ShardedVectorStore` over a mesh of
+`mesh.data_axis` x `mesh.model_axis` devices: every visible CUDA device
+(device=None or a CUDA device), or the one CPU device when the caller asks
+for the CPU. Unlike the JAX package, a persisted index that fails to load
 raises instead of starting empty (and being overwritten by the next save).
 """
 
@@ -48,6 +52,12 @@ def create_vector_store(config: AppConfig, device=None) -> BaseVectorStore:
 
         return NumpyVectorStore(dim=config.index.dim, quantization=config.quantization)
     if backend == "sharded":
-        raise NotImplementedError(
-            "index.backend 'sharded' is not ported yet: ROADMAP queue A item 12")
+        from radiant_rag_tpu_torch import resolve_device
+        from radiant_rag_tpu_torch.parallel.mesh import create_mesh
+        from radiant_rag_tpu_torch.parallel.sharded_store import ShardedVectorStore
+
+        dev = resolve_device(device)
+        mesh = create_mesh(data=config.mesh.data_axis, model=config.mesh.model_axis,
+                           devices=[dev] if dev.type == "cpu" else None)
+        return ShardedVectorStore(mesh, _create_tpu_store(config, dev))
     raise ValueError(f"unknown index backend: {backend!r} (expected tpu|sharded|numpy)")

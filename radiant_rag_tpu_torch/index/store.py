@@ -7,8 +7,10 @@ the engine's fused two-stage search; `save` / `load` use the JAX package's
 on-disk format (`docs/` segments, `engine.npz`, `manifest.json`), so either
 package loads the other's saved directory.
 
-Not here: `build_graph` raises until the graph engine is ported, and a
-`docstore: spill` configuration raises (ROADMAP queue A item 10).
+`index.docstore: spill` keeps the content out of core (`SpillDocStore`
+under `<data_dir>/docs_spill`, of `docstore_cache_docs` hot docs); loading
+an in-RAM directory with it migrates the docs once. Not here: `build_graph`
+raises until the graph engine is ported (ROADMAP queue A item 10).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import numpy as np
 from radiant_rag_tpu_torch.config import IndexConfig, QuantizationConfig
 from radiant_rag_tpu_torch.index.base import BaseVectorStore, Triple
 from radiant_rag_tpu_torch.index.doc import StoredDoc
-from radiant_rag_tpu_torch.index.docstore import SPILL_NOT_PORTED, DocStore, load_docstore
+from radiant_rag_tpu_torch.index.docstore import DocStore, SpillDocStore, load_docstore
 from radiant_rag_tpu_torch.index.engine import DeviceVectorIndex
 
 logger = logging.getLogger(__name__)
@@ -46,8 +48,11 @@ class TpuVectorStore(BaseVectorStore):
         self.quantization = quantization or QuantizationConfig()
         self.dim = dim
         if self.index_config.docstore == "spill":
-            raise NotImplementedError(SPILL_NOT_PORTED)
-        self.docstore = DocStore()
+            self.docstore: DocStore = SpillDocStore(
+                os.path.join(self.index_config.data_dir, "docs_spill"),
+                cache_docs=self.index_config.docstore_cache_docs)
+        else:
+            self.docstore = DocStore()
         self.engine = self._new_engine(device)
         self.lang_codes: Dict[str, int] = {}
         path = self.quantization.int8_ranges_path
@@ -254,7 +259,14 @@ class TpuVectorStore(BaseVectorStore):
         """Checkpoint the index: docstore segments + engine arrays + vocab."""
         d = Path(directory)
         d.mkdir(parents=True, exist_ok=True)
-        self.docstore.save(str(d / "docs"))
+        # a spill store saving into its own directory persists its index
+        # delta in place; into another directory it exports the in-RAM
+        # segmented format under docs/ (docs_spill/ holds spill stores only)
+        if isinstance(self.docstore, SpillDocStore) and \
+                (d / "docs_spill").resolve() == self.docstore.dir.resolve():
+            self.docstore.save()
+        else:
+            self.docstore.save(str(d / "docs"))
         legacy = d / "docs.jsonl.gz"
         if legacy.exists():
             legacy.unlink()  # migrated to docs/ segments
@@ -278,7 +290,9 @@ class TpuVectorStore(BaseVectorStore):
         store = cls(dim=manifest["dim"], index_config=index_config,
                     quantization=quantization, device=device)
         store.lang_codes = {str(k): int(v) for k, v in manifest.get("lang_codes", {}).items()}
-        store.docstore = load_docstore(str(d))
+        cfg = store.index_config
+        store.docstore = load_docstore(str(d), prefer="spill" if cfg.docstore == "spill" else "",
+                                       cache_docs=cfg.docstore_cache_docs)
         with np.load(d / "engine.npz") as z:
             state = {k: z[k] for k in z.files}
         store.engine = DeviceVectorIndex.from_host(

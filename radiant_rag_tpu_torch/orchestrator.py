@@ -8,6 +8,10 @@ verification and citation in a 2-worker pool, and per-phase `RunMetrics`
 with degradation marks. Hybrid retrieval is the fused `HybridSearcher`
 over the store's engine and the BM25 index: all effective queries embedded
 on the card (`embed_queries_device`) and searched in one `search_rows`.
+Over a sharded pod store it is the store's `search_hybrid`; the searcher is
+then built over the store's single-device source engine only to calibrate
+the fusion, whose mode and weights `set_fusion` carries to the pod (and the
+rerank auto-disable probes do not run).
 
 Two deviations from the JAX package, both so that a broken card cannot
 hide behind a degraded answer:
@@ -20,8 +24,7 @@ hide behind a degraded answer:
 LLM failures (`LLMError`, JSON that does not parse) degrade as there.
 
 Not here yet (ROADMAP queue A item 11, rest): the language phase, web
-search, the metrics exporter (their config fields raise), and the sharded
-pod store's hybrid path (item 12).
+search and the metrics exporter (their config fields raise).
 """
 
 from __future__ import annotations
@@ -62,9 +65,6 @@ from radiant_rag_tpu_torch.index.hybrid import (
 from radiant_rag_tpu_torch.utils.metrics import RunMetrics
 
 logger = logging.getLogger(__name__)
-
-POD_NOT_PORTED = ("hybrid retrieval over a sharded pod store is not ported yet: "
-                  "ROADMAP queue A item 12")
 
 LOW_CONFIDENCE_RESPONSE = (
     "I don't have enough reliable information in the indexed documents to "
@@ -139,10 +139,15 @@ class RAGOrchestrator:
         cfg = config
 
         # the fused device retrieval path, over the store's engine; a store
-        # without one (the numpy backend) retrieves leg by leg
+        # without one (the numpy backend) retrieves leg by leg. Over a pod
+        # store the searcher is built on the source engine (the same rows)
+        # to calibrate the fusion, and does not serve (module doc)
         self._hybrid = None
-        if hasattr(store, "engine") and hasattr(bm25_index, "index"):
-            self._hybrid = HybridSearcher(store.engine, bm25_index._index)
+        self._hybrid_serves = False
+        engine = self._store_engine()
+        if engine is not None and hasattr(bm25_index, "index"):
+            self._hybrid = HybridSearcher(engine, bm25_index._index)
+            self._hybrid_serves = hasattr(store, "engine")
             # every search_rows through this searcher (serving, the agentic
             # path, warmup, calibration) fuses at retrieval.fused_depth
             self._hybrid.default_fused_depth = resolve_fused_depth(cfg.retrieval)
@@ -483,10 +488,10 @@ class RAGOrchestrator:
     def _run_retrieval(self, ctx: AgentContext, metrics: RunMetrics) -> None:
         mode = ctx.retrieval_mode
         queries = ctx.effective_queries or [ctx.query]
-        if mode == "hybrid" and self._hybrid is not None:
+        if mode == "hybrid" and self._hybrid is not None and self._hybrid_serves:
             self._run_hybrid_fused(ctx, queries)
         elif mode == "hybrid" and getattr(self.store, "can_hybrid", False):
-            raise NotImplementedError(POD_NOT_PORTED)
+            self._run_hybrid_pod(ctx, queries)
         else:
             if mode in ("hybrid", "dense"):
                 res = self.dense.run(ctx, queries=queries)
@@ -528,7 +533,7 @@ class RAGOrchestrator:
         (module doc)."""
         rcfg = self.config.rerank
         n_probes = int(rcfg.auto_disable_probes)
-        if n_probes <= 0 or self._hybrid is None:
+        if n_probes <= 0 or self._hybrid is None or not self._hybrid_serves:
             return
         if not (self.rerank.enabled or self.rerank_calibration.get("auto_disabled")):
             return
@@ -593,7 +598,13 @@ class RAGOrchestrator:
                 rr_ce.append(rank)
         finally:
             self.rerank.enabled = was_enabled
-        gain = float(np.mean(rr_ce) - np.mean(rr_in)) if rr_ce else 0.0
+        if not rr_ce:
+            # no probe hydrated to a doc: no evidence either way, so the
+            # stage stays as it was (the JAX package disables it on a gain
+            # of 0.0 here)
+            self._rerank_calibrated_at = count
+            return
+        gain = float(np.mean(rr_ce) - np.mean(rr_in))
         min_gain = float(rcfg.auto_disable_min_gain)
         verdict = {
             "probes": len(rr_ce), "incoming_mrr": round(float(np.mean(rr_in)), 4),
@@ -632,19 +643,57 @@ class RAGOrchestrator:
                             paraphrase_fraction=rcfg.calibration_paraphrase_fraction,
                             seeds=rcfg.calibration_seeds)
         logger.info("fusion calibration: %s", hy.last_calibration)
+        if hasattr(self.store, "set_fusion"):  # a pod store serves what the probes chose
+            self.store.set_fusion(hy.fusion_mode, hy.leg_weights)
+
+    def _store_engine(self):
+        """The device engine under the store: its own, or a pod store's
+        source's; None for a store without one."""
+        if hasattr(self.store, "engine"):
+            return self.store.engine
+        return getattr(getattr(self.store, "source", None), "engine", None)
 
     def refresh_fused_searcher(self) -> HybridSearcher:
         """The fused searcher on the live BM25 index (load and rebuild
         replace it) and the store's engine (clear_index replaces it; the
         JAX package keeps searching the old one, ROADMAP section C),
-        calibrated when due."""
+        calibrated when due. A new engine re-earns both calibrations."""
         hy = self._hybrid
         hy.rebind_bm25(self.bm25_index.index)
-        if hy.engine is not self.store.engine:
-            hy.engine = self.store.engine
-            hy.invalidate_calibration()
+        engine = self._store_engine()
+        if hy.engine is not engine:
+            hy.engine = engine
+            self.invalidate_fusion_calibration()
         self._ensure_fusion_calibration()
         return hy
+
+    def calibrate_pod_fusion(self) -> None:
+        """The fusion calibration of a pod store: the probes run over the
+        source engine (`refresh_fused_searcher`), and the selected mode and
+        weights go to the pod (`_ensure_fusion_calibration`)."""
+        if self._hybrid is not None:
+            self.refresh_fused_searcher()
+
+    def _run_hybrid_pod(self, ctx: AgentContext, queries: Sequence[str]) -> None:
+        """Hybrid retrieval over a pod store: per-shard kernels, the legs
+        merged across shards and with the delta segment, the calibrated
+        fusion, then the same cross-query aggregation as the fused path."""
+        cfg = self.config.retrieval
+        with self.device_stage("hybrid retrieval"):
+            self.calibrate_pod_fusion()
+            embeddings = self.local_models.embed(list(queries))
+            res = self.store.search_hybrid(
+                embeddings, list(queries), top_k=max(cfg.dense_top_k, cfg.bm25_top_k),
+                fused_k=cfg.fused_top_k, rrf_k=cfg.rrf_k, return_legs=True,
+                fused_depth=resolve_fused_depth(cfg))
+        ctx.dense_docs = dedup_best_score([h for run in res["dense"] for h in run
+                                           if h[1] >= cfg.min_similarity])
+        ctx.bm25_docs = dedup_best_score([h for run in res["bm25"] for h in run])
+        per_query_runs = [run for run in res["fused"] if run]
+        if len(per_query_runs) > 1:
+            ctx.fused_docs = self.fusion.fuse(per_query_runs, top_k=cfg.fused_top_k)
+        else:
+            ctx.fused_docs = (per_query_runs[0] if per_query_runs else [])[: cfg.fused_top_k]
 
     def _run_hybrid_fused(self, ctx: AgentContext, queries: Sequence[str]) -> None:
         """Fused hybrid retrieval on the card: every effective query

@@ -221,11 +221,11 @@ def make_server(app, host: str = "0.0.0.0", port: int = 8080) -> ThreadingHTTPSe
         protocol_version = "HTTP/1.1"
 
         def _respond(self, method: str) -> None:
-            # parse and serialize+write run under the bounded work gate;
+            # parse and serialize run under the bounded work gate;
             # api.handle's waits (coalescer, device lock) run outside it
             gate = api.work_gate if api.work_gate is not None else nullcontext()
-            # the socket read stays outside the gate: a slow client must
-            # not hold a slot
+            # the socket read and write stay outside the gate: a slow
+            # client must not hold a slot
             length = int(self.headers.get("Content-Length", 0) or 0)
             raw = self.rfile.read(length) if length else b""
             with gate:
@@ -239,11 +239,11 @@ def make_server(app, host: str = "0.0.0.0", port: int = 8080) -> ThreadingHTTPSe
                 status, payload = api.handle(method, self.path.rstrip("/") or "/", body)
             with gate:
                 data = json.dumps(payload, default=str).encode()
-                self.send_response(status)
-                self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(data)))
-                self.end_headers()
-                self.wfile.write(data)
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
 
         def do_GET(self):  # noqa: N802
             self._respond("GET")

@@ -184,3 +184,71 @@ def test_needs_calibration_and_invalidate(corpora):
     other = BM25Index(sketch_dim=64, device="cpu")
     t.rebind_bm25(other)
     assert t.bm25 is other
+
+
+# -- the rerank auto-disable verdict: repairs of ROADMAP section C ------------
+
+@pytest.fixture(scope="module")
+def big_stacks(tmp_path_factory):
+    from _torch_agentic_world import BIG_DOCS, make_stacks
+
+    return make_stacks(tmp_path_factory.mktemp("big"), BIG_DOCS)
+
+
+def test_clear_index_earns_the_rerank_verdict_again(tmp_path):
+    """clear_index replaces the store's engine; the searcher's rebind must
+    drop the rerank verdict with the fusion calibration, or a smaller
+    corpus (inside the 20% growth window of the old count) keeps the old
+    verdict."""
+    from _torch_agentic_world import BIG_DOCS, llms, make_stacks, replace_sections
+    from radiant_rag_tpu_torch.app import RadiantTPU
+    from radiant_rag_tpu_torch.ingestion.processor import IngestedChunk
+
+    cfg, store, _, models = make_stacks(tmp_path / "w", BIG_DOCS)["t"]
+    cfg = replace_sections(cfg, rerank={"auto_disable_probes": 8},
+                           bm25={"index_path": str(tmp_path / "bm25.json.gz")},
+                           index={"data_dir": str(tmp_path / "idx")})
+    app = RadiantTPU(cfg, llm=llms()[1], local_models=models, store=store, device="cpu")
+    orch = app.orchestrator
+    orch._ensure_rerank_calibration()
+    assert orch._rerank_calibrated_at == store.count_documents() == len(BIG_DOCS)
+    app.clear_index()
+    app.ingest_chunks([IngestedChunk(t, {"source": f"d{i}"}) for i, t in enumerate(BIG_DOCS[:40])])
+    n = store.count_documents()
+    assert 8 * 8 <= n < len(BIG_DOCS)  # 40 parents + 40 leaves
+    assert app.search("Document about golgi transport", top_k=3, use_cache=False)
+    orch._ensure_rerank_calibration()
+    assert orch._rerank_calibrated_at == n and orch.rerank_calibration["probes"] >= 4
+
+
+def _search_finds_nothing(searcher):
+    def search_rows(q_embs, queries, dense_k=10, bm25_k=10, fused_k=15, **kw):
+        b = len(queries)
+        empty = lambda k: (np.full((b, k), -1e30, np.float32),  # noqa: E731
+                           np.full((b, k), -1, np.int64))
+        return {"dense": empty(dense_k), "bm25": empty(bm25_k), "fused": empty(fused_k)}
+
+    searcher.search_rows = search_rows
+
+
+def test_rerank_probes_without_evidence_leave_the_stage_as_it_was(big_stacks):
+    """Every probe hydrates to no doc: the JAX package reads a gain of 0.0
+    and switches the rerank off on nan MRRs; the port stamps the count and
+    leaves the stage as it was (the too-few-probes case)."""
+    import warnings
+
+    from _torch_agentic_world import orchestrators
+
+    jo, to = orchestrators(big_stacks, sections={"rerank": {"auto_disable_probes": 8}})
+    for orch in (jo, to):
+        _search_finds_nothing(orch._hybrid)
+        assert orch.rerank.enabled
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # the mean of no probes
+        jo._ensure_rerank_calibration()
+    v = jo.rerank_calibration
+    assert v["probes"] == 0 and v["auto_disabled"] and np.isnan(v["rerank_mrr"])
+    assert not jo.rerank.enabled
+    to._ensure_rerank_calibration()
+    assert to.rerank.enabled and not to.rerank_calibration
+    assert to._rerank_calibrated_at == big_stacks["t"][1].count_documents()

@@ -557,3 +557,41 @@ def test_train_steps_on_card_equal_cpu(card, kind):
                                                        and name == "classifier.bias")
         torch.testing.assert_close(runs[1][1][name], ref, rtol=0,
                                    atol=3 * lr if zero else 2e-5, msg=name)
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_pod_on_card_equals_cpu(card, shards):
+    """The sharded hybrid index on the card (one shard, or 4 logical shards
+    of one card) against the same index on the CPU (plain versions): the
+    kernels launch once a shard a leg, and every leg matches under
+    tests/_torch_parity.py's rule; exact mode's merge equals the
+    single-device exact search."""
+    from radiant_rag_tpu_torch.index.bm25 import BM25Index
+    from radiant_rag_tpu_torch.index.engine import DeviceVectorIndex
+    from radiant_rag_tpu_torch.parallel.mesh import create_mesh
+    from radiant_rag_tpu_torch.parallel.sharded_index import ShardedHybridIndex
+
+    rng = np.random.default_rng(11)
+    n, d, b = 9000, 384, 37
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    texts = [" ".join(f"w{t}" for t in row) for row in rng.zipf(1.3, (n, 24)) % 3000]
+    q = vecs[:b] + 0.2 * rng.standard_normal((b, d)).astype(np.float32)
+    qt = [" ".join(t.split()[:5]) for t in texts[:b]]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        bm = BM25Index(device=dev)
+        bm.bulk_build(list(range(n)), texts)
+        idx = ShardedHybridIndex(create_mesh(shards, 1, devices=[dev] * shards), vecs, bm)
+        before = (ck.hamming_scan_topk.launches, ck.int8_scan_topk.launches)
+        out[dev] = idx.hybrid_search(q, qt, dense_k=60, bm25_k=60, fused_k=10)
+        launched = (ck.hamming_scan_topk.launches - before[0],
+                    ck.int8_scan_topk.launches - before[1])
+        assert launched == ((shards, shards) if dev == "cuda" else (0, 0))
+        if dev == "cuda":
+            eng = DeviceVectorIndex(d, initial_capacity=n, device=dev)
+            eng.append(vecs, np.zeros(n, np.int8), np.zeros(n, np.int32), np.full(n, 24.0))
+            got = idx.search(q, 10, mode="exact")
+            want = eng.search(q / np.linalg.norm(q, axis=1, keepdims=True), 10, mode="exact")
+            assert_result_match({"exact": want}, {"exact": got}, "exact merge")
+    assert_result_match(out["cpu"], out["cuda"], f"{shards} shard(s)")

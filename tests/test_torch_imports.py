@@ -31,7 +31,8 @@ new = {"config", "index.base", "index.doc", "index.docstore", "index.factory",
        "agents.rerank", "agents.planning", "agents.strategy_memory", "agents.query_processing",
        "agents.context_eval", "agents.summarization", "agents.synthesis", "agents.critic",
        "agents.multihop", "agents.fact_verification", "agents.citation", "agents.tools",
-       "utils.conversation", "parallel.train", "parallel.checkpoint"}
+       "utils.conversation", "parallel.train", "parallel.checkpoint", "parallel.mesh",
+       "parallel.sharded_index", "parallel.sharded_store", "parallel.multihost"}
 assert {"radiant_rag_tpu_torch." + m for m in new} <= set(names), names
 import torch
 assert not torch.cuda.is_available()
@@ -46,13 +47,15 @@ from radiant_rag_tpu_torch.models.registry import LocalNLPModels
 from radiant_rag_tpu_torch.app import RadiantTPU
 from radiant_rag_tpu_torch.models.bert import BertConfig
 from radiant_rag_tpu_torch.parallel import data, train
+from radiant_rag_tpu_torch.parallel.mesh import create_mesh
 tiny = BertConfig(vocab_size=64, hidden_size=8, num_layers=1, num_heads=2, intermediate_size=16)
 for make in (lambda: train.make_train_state(tiny), lambda: train.make_ce_train_state(tiny),
              lambda: train.contrastive_train_step(), lambda: train.cross_encoder_train_step(),
              lambda: data.train_cross_encoder(["a b c"], bert_cfg=tiny, steps=2),
              lambda: DeviceVectorIndex(64), lambda: BM25Index(),
              lambda: DeviceVectorIndex(64, device="cuda"), lambda: TpuVectorStore(64),
-             lambda: create_vector_store(config_from_dict({})),
+             lambda: create_vector_store(config_from_dict({})), lambda: create_mesh(),
+             lambda: create_vector_store(config_from_dict({"index": {"backend": "sharded"}})),
              lambda: PersistentBM25Index(None), lambda: Embedder(), lambda: CrossEncoder(),
              lambda: LocalNLPModels(), lambda: Embedder(device="cuda"),
              lambda: RadiantTPU(), lambda: RadiantTPU(config_from_dict({}), device="cuda")):
@@ -267,7 +270,7 @@ def test_example_configs_parse_equal_to_jax_on_every_section(name, monkeypatch):
     ("web_crawler", "max_depth", 3, "crawlers"),
     ("github", "token", "secret", "crawlers"),
     ("report", "default_format", "html", "reports \\(ui/\\)"),
-    ("mesh", "shard_corpus", True, "queue A item 12"),
+    ("mesh", "shard_corpus", True, "neither package"),
     ("mesh", "dtype_compute", "float32", "neither package"),
     ("llm", "model_path", "/models/llama", "causal-LM weights"),
     ("llm", "device", "cuda", "causal-LM weights"),

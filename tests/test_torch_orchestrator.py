@@ -380,14 +380,27 @@ def test_strategy_memory_failure_is_isolated_like_jax(stacks, monkeypatch):
 
 
 def test_pod_store_hybrid_raises_naming_its_item(stacks):
+    """A hybrid store with no device engine behind it takes the pod path:
+    its own search_hybrid, with the legs and the fused depth (the pod path
+    was not ported before; tests/test_torch_sharded_app.py holds it against
+    the JAX package)."""
+    calls = []
+
     class PodStore:
         can_hybrid = True
 
+        def search_hybrid(self, embeddings, queries, **kw):
+            calls.append((len(queries), kw))
+            return {"fused": [[]], "dense": [[]], "bm25": [[]]}
+
     cfg, _, bm25, models = stacks["t"]
     orch = RAGOrchestrator(cfg, PodStore(), bm25, models, llms()[1])
-    assert orch._hybrid is None
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        orch._run_retrieval(new_agent_context("q"), None)
+    assert orch._hybrid is None and not orch._hybrid_serves
+    ctx = new_agent_context("q")
+    orch._run_retrieval(ctx, None)
+    assert calls == [(1, {"top_k": 10, "fused_k": 15, "rrf_k": 60, "return_legs": True,
+                          "fused_depth": 60})]
+    assert ctx.fused_docs == [] and ctx.dense_docs == []
 
 
 # ---------------------------------------------------- rerank auto-disable ---

@@ -451,3 +451,42 @@ def test_query_takes_the_device_lock_per_stage(qserved):
         worker.join(30)
         backend.responder = responder
         api.close()
+
+
+def test_a_client_that_does_not_read_holds_no_work_slot():
+    """The response write runs outside the work gate: with one
+    request_workers slot, a client that never reads a large response
+    leaves the slot free, and a second request completes meanwhile (the
+    write used to hold the slot until the first client read)."""
+    import socket
+    import types
+
+    from radiant_rag_tpu_torch.config import config_from_dict
+
+    app = types.SimpleNamespace(
+        config=config_from_dict({"server": {"request_workers": 1, "coalesce": False}}),
+        device_lock=threading.RLock())
+    server = make_server(app, "127.0.0.1", 0)
+    big = "x" * (64 << 20)  # far past the socket buffers: the write blocks
+
+    def handle(method, path, body):
+        return 200, ({"blob": big} if path == "/big" else {"small": True})
+
+    server.api.handle = handle
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    stalled = socket.create_connection(("127.0.0.1", port))
+    stalled.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4096)
+    try:
+        stalled.sendall(b"POST /big HTTP/1.1\r\nHost: x\r\nContent-Length: 2\r\n\r\n{}")
+        time.sleep(1.0)  # the server is now blocked writing to the stalled client
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/small", data=b"{}",
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            assert resp.status == 200 and json.loads(resp.read()) == {"small": True}
+    finally:
+        stalled.close()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)

@@ -261,10 +261,15 @@ def test_factory_backends_and_persisted_dim(tmp_path):
     with pytest.raises(ValueError, match="dim=64"):
         create_vector_store(tcfg.config_from_dict(
             {"index": {"data_dir": str(tmp_path / "idx"), "dim": 128}}), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 12"):
+    sharded = create_vector_store(tcfg.config_from_dict(
+        {"index": {**base["index"], "backend": "sharded"}}), device="cpu")
+    assert type(sharded).__name__ == "ShardedVectorStore"
+    assert sharded.count_documents() == store.count_documents()
+    with pytest.raises(RuntimeError, match="CUDA"):  # the sharded mesh: every CUDA device
         create_vector_store(tcfg.config_from_dict({"index": {"backend": "sharded"}}))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 10"):
-        TpuVectorStore(D, tcfg.IndexConfig(dim=D, docstore="spill"), device="cpu")
+    spill = TpuVectorStore(D, tcfg.IndexConfig(dim=D, docstore="spill",
+                                               data_dir=str(tmp_path / "spill")), device="cpu")
+    assert type(spill.docstore).__name__ == "SpillDocStore"
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 10"):
         store.build_graph()
 
@@ -296,7 +301,7 @@ def test_chip_smoke_preset_literal_is_the_shipped_file():
 @pytest.mark.parametrize("section,key,value,reason", [
     ("index", "metric", "dot", "neither package"),
     ("index", "graph_degree", 32, "queue A item 10"),
-    ("index", "docstore_cache_docs", 10, "queue A item 10"),
+    ("index", "growth_factor", 3.0, "neither package"),
     ("quantization", "int8_on_disk_only", "true", "neither package"),
     ("language", "enabled", "true", "queue A item 11"),
     ("pipeline", "use_web_search", "yes", "queue A item 11"),

@@ -89,6 +89,21 @@ seed: 1M docs of clustered 384-d vectors and zipfian 48-token texts):
            merge, and the spill docstore's hydration, hit share, save and
            load; its kernel rows are the pod's shapes at N = rows_per_shard
            for 1 and 4 shards.
+  phase 11 the graph engine over phase 7's corpus (after phase 10): a
+           `TpuVectorStore` from `create_vector_store` with
+           `index.use_graph: true`, filled by the same load path, and
+           `RadiantTPU` over it; the exact build over the first 200,000
+           rows held to the exact top-16, `store.build_graph()` over every
+           row (NN-descent + cluster polish: rounds, per-round host ms and
+           device span, structure, sampled edge agreement),
+           `app.search_batch(mode="dense")` in graph mode at B = 1 to 2048
+           (ms, QPS, the bound, a profile, recall@10 beside flat int8), the
+           card's beam search held to the port's plain run on the CPU, the
+           fused hybrid under use_graph held to mode="int8", and 16,384
+           ingested chunks inserted by the query path (out-edges held to
+           the exact top-16, back-edges to a numpy oracle of the
+           weakest-edge rule). The graph path is plain PyTorch: no kernel
+           row of its own.
 
 Prints the card's name and power limit, the phases' numbers, one
 {"kernels": [...]} JSON line, and as its last line
@@ -101,6 +116,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import re
 import subprocess
 import sys
@@ -643,31 +659,32 @@ def device_report(prof, wall_us: float, what: str):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     log(f"profile ({what}): wall {wall_us / 1e3:.1f} ms, device busy "
-        f"{busy / 1e3:.1f} ms, idle share {max(0.0, 1 - busy / wall_us):.3f}")
+        f"{busy / 1e3:.1f} ms, idle share {max(0.0, 1 - busy / wall_us):.3f}, "
+        f"{len(kernels)} device kernels and copies")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {us / 1e3:9.3f} ms  {name[:110]}")
     return max(0.0, 1 - busy / wall_us)
 
 
-def exact_top10(vecs, q: np.ndarray, valid=None):
-    """Recall oracle: exact fp32 cosine top-10, a plain matmul on the card
-    in row chunks (off the path under test). `vecs`: host vectors, or an
-    engine's device rows with their `valid` mask."""
+def exact_top10(vecs, q: np.ndarray, valid=None, k: int = TOP_K):
+    """Recall oracle: exact fp32 cosine top-10 (or top-k), a plain matmul on
+    the card in row chunks (off the path under test). `vecs`: host vectors,
+    or an engine's device rows with their `valid` mask."""
     import torch
 
     qd = torch.from_numpy(q).cuda()
-    best_s = torch.full((q.shape[0], TOP_K), -2.0, device="cuda")
-    best_i = torch.full((q.shape[0], TOP_K), -1, dtype=torch.int64, device="cuda")
+    best_s = torch.full((q.shape[0], k), -2.0, device="cuda")
+    best_i = torch.full((q.shape[0], k), -1, dtype=torch.int64, device="cuda")
     step = 1 << 17
     for s in range(0, vecs.shape[0], step):
         v = vecs[s:s + step]
         sc = qd @ (torch.from_numpy(v).cuda() if isinstance(v, np.ndarray) else v).T
         if valid is not None:
             sc.masked_fill_(~valid[s:s + step][None, :], -3.0e38)
-        cs, ci = torch.topk(sc, min(TOP_K, sc.shape[1]), dim=1)
+        cs, ci = torch.topk(sc, min(k, sc.shape[1]), dim=1)
         alls = torch.cat([best_s, cs], 1)
         alli = torch.cat([best_i, ci + s], 1)
-        top = torch.topk(alls, TOP_K, dim=1).indices
+        top = torch.topk(alls, k, dim=1).indices
         best_s, best_i = alls.gather(1, top), alli.gather(1, top)
     return best_i.cpu().numpy()
 
@@ -1873,6 +1890,10 @@ def phase_serving(ck, main_path, vecs, texts, smi, known_keys):
     rows += phase_pod(ck, main_path, app, vecs, texts, smi, d,
                       set(known_keys) | {row["_key"] for row in rows})
     log(f"phase 10: {time.perf_counter() - t10:.1f} s")
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    phase_graph(ck, main_path, app, vecs, texts, smi, d)
+    log(f"phase 11: {time.perf_counter() - t11:.1f} s")
     del app, store, models, searcher, res, res2k, qdev, qdev2k
     tmp.cleanup()
     return rows
@@ -3498,6 +3519,410 @@ def phase_pod(ck, main_path, app7, vecs, texts, smi, d, known_keys, card=None):
     log("phase 10 summary: " + json.dumps({"device": smi, "timings_s": timings, **numbers}))
     del app, pod, base, src, state
     return rows
+
+
+# phase 11: the graph engine (index.use_graph) over phase 7's corpus
+GRAPH_EXACT_ROWS = 200_000  # GraphIndex.EXACT_BUILD_MAX_ROWS: the auto path's exact build
+GRAPH_DEGREE = 16  # index.graph_degree's default
+GRAPH_BUCKETS = (1, 8, 64, 256, 2048)  # app.search_batch(mode="dense") at each
+GRAPH_AGREE_ROWS = 4096  # rows whose descent edges meet the exact top-16
+GRAPH_SAMPLE_NEW = 256  # inserted rows held to the exact top-16, and searched by their vector
+GRAPH_BACK_TARGETS = 64  # back-edge targets held to the weakest-edge oracle
+GRAPH_SECOND_INGEST = 2048  # chunks of the second insertion
+GRAPH_PLAIN_Q = 64  # queries of the card-vs-CPU beam search
+GRAPH_HYBRID_B = 256
+EDGE_TIE = 1e-6  # tests/test_torch_graph.py's near-tie rule
+
+
+class LogRecords(logging.Handler):
+    """Keeps the records one logger emits (the descent's per-round lines)."""
+
+    def __init__(self, name: str):
+        super().__init__(logging.INFO)
+        self.logger = logging.getLogger(name)
+        self.records, self.level0 = [], self.logger.level
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        self.logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level0)
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def exact_knn(corpus, rows: np.ndarray, valid, k: int, step: int = 512) -> np.ndarray:
+    """Exact top-k neighbours of corpus rows `rows` over the valid rows,
+    each row itself excluded: the port's `exact_topk` at k + 1 a block of
+    rows at a time, the row dropped (or the last of k + 1 where it is not
+    among them). Off the path under test."""
+    import torch
+
+    from radiant_rag_tpu_torch.ops import similarity as sim
+
+    out = np.empty((len(rows), k), np.int64)
+    for s in range(0, len(rows), step):
+        r = np.asarray(rows[s:s + step], np.int64)
+        q = corpus[torch.from_numpy(r).to(corpus.device)]
+        top = sim.exact_topk(corpus, q, valid, k + 1)[1].cpu().numpy().astype(np.int64)
+        keep = np.argsort(top == r[:, None], axis=1, kind="stable")[:, :k]
+        out[s:s + len(r)] = np.take_along_axis(top, keep, 1)
+    return out
+
+
+def edge_misses(rows: np.ndarray, want: np.ndarray, got: np.ndarray, hv: np.ndarray):
+    """Rows whose edges `got` differ from `want` beyond a near-tie: where the
+    two disagree, the two neighbours' float64 cosines to the row differ by
+    more than EDGE_TIE (or one side is -1)."""
+    bad = []
+    for j in np.nonzero((want != got).any(axis=1))[0]:
+        a, b = want[j], got[j]
+        p = np.nonzero(a != b)[0]
+        if (a[p] < 0).any() or (b[p] < 0).any():
+            bad.append(int(rows[j]))
+            continue
+        v = hv[rows[j]].astype(np.float64)
+        if np.abs(hv[a[p]].astype(np.float64) @ v - hv[b[p]].astype(np.float64) @ v).max() \
+                > EDGE_TIE:
+            bad.append(int(rows[j]))
+    return bad
+
+
+def back_edge_oracle(t: int, cur: np.ndarray, cands: np.ndarray, live: np.ndarray,
+                     hv: np.ndarray, deg: int) -> np.ndarray:
+    """Weakest-edge rule for target t, in numpy float64: its pre-insert
+    edges (dead or -1 scored -inf) and the new rows that chose it (in row
+    order, those already among its edges dropped), by score descending,
+    stable, the first deg; -inf slots are -1."""
+    v = hv[t].astype(np.float64)
+    cands = np.asarray([c for c in cands if c not in set(cur.tolist())], np.int64)
+    ids = np.concatenate([cur.astype(np.int64), cands])
+    ok = (ids >= 0) & live[np.maximum(ids, 0)]
+    scr = np.where(ok, hv[np.maximum(ids, 0)].astype(np.float64) @ v, -np.inf)
+    sel = np.argsort(-scr, kind="stable")[:deg]
+    return np.where(np.isfinite(scr[sel]), ids[sel], -1)
+
+
+def phase_graph(ck, main_path, app7, vecs, texts, smi, d, card=None):
+    """Phase 11: the graph engine at MiniLM-L12 width over phase 7's corpus
+    (1,016,384 rows): `create_vector_store` with `index.use_graph: true`,
+    its engine filled by the load path from phase 7's store
+    (`DeviceVectorIndex.from_host`), the docs put into its docstore, then
+    `RadiantTPU` over it (its BM25 index built from the store). Checks and
+    prints (1) the auto path's exact build over the first 200,000 rows
+    against the exact top-16; (2) `store.build_graph()` over every row
+    (NN-descent + cluster polish): rounds, per-round ms, structure, sampled
+    agreement with the exact top-16; (3) `app.search_batch(mode="dense")`
+    at 5 buckets (graph mode at ef 100): ms, QPS, recall@10 beside flat
+    int8, a profile, the bound; (4) the card's beam search against the
+    port's plain run on the CPU; (6) the fused hybrid under use_graph
+    against search_rows(mode="int8"); (5) 16,384 ingested chunks inserted
+    by the query path: out-edges exact, back-edges the weakest-edge
+    oracle's; (7) peak memory. The graph path launches no kernel; the
+    hybrid's stage 1 does (int8_scan_topk)."""
+    import torch
+
+    from radiant_rag_tpu_torch.app import RadiantTPU
+    from radiant_rag_tpu_torch.config import config_from_dict
+    from radiant_rag_tpu_torch.index.engine import DeviceVectorIndex
+    from radiant_rag_tpu_torch.index.factory import create_vector_store
+    from radiant_rag_tpu_torch.index.graph import GraphIndex, graph_search
+    from radiant_rag_tpu_torch.index.hybrid import embed_queries_device
+    from radiant_rag_tpu_torch.ingestion.processor import IngestedChunk
+
+    card = torch.device("cuda", 0) if card is None else torch.device(card)
+    check(not torch.backends.cuda.matmul.allow_tf32, "phase 11 needs TF32 off")
+    store7, models = app7.store, app7.local_models
+    gdir = d / "graph"
+    cfg = config_from_dict({
+        "embedding": {**MINILM_PRESET["embedding"], "checkpoint_dir": str(d / "embedder_ckpt")},
+        "index": {"use_graph": True, "data_dir": str(gdir / "index"), "auto_persist": False},
+        "bm25": {"index_path": str(gdir / "bm25.json.gz")},
+        "strategy_memory": {"path": str(gdir / "strategy_memory.json.gz")},
+        "conversation": {"data_dir": str(gdir / "conversations")}})
+    ic, r, q = cfg.index, cfg.retrieval, cfg.quantization
+    check((ic.use_graph, ic.graph_degree, ic.graph_ef_runtime, q.rescore_multiplier)
+          == (True, GRAPH_DEGREE, 100, 4.0), "phase 11 config")
+    ef = ic.graph_ef_runtime
+    timings, numbers = {}, {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    # -- the store, its app ---------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    store = create_vector_store(cfg, device=card)
+    check(type(store).__name__ == "TpuVectorStore" and store._default_mode() == "int8",
+          "phase 11 store")
+    state = store7.engine.to_host()
+    store.engine = DeviceVectorIndex.from_host(state, initial_capacity=store7.engine.capacity,
+                                               stage1_select=ic.stage1_select, device=card)
+    store.lang_codes = dict(store7.lang_codes)
+    for doc in store7.docstore:  # the docs, as a load puts them
+        store.docstore.put(doc, row=store7.docstore.id_to_row.get(doc.doc_id))
+    app = RadiantTPU(cfg, llm=app7.llm, store=store, local_models=models, device=card)
+    n_bm = app.bm25_index.get_stats()["num_docs"]
+    eng = store.engine
+    count = eng.count
+    timings["store_and_app_s"] = time.perf_counter() - t0
+    check(count == state["vecs"].shape[0] and n_bm == count
+          and store.count_documents() == store7.count_documents(), "phase 11 load")
+    valid_h = eng.valid[:count].cpu().numpy()
+    hv = eng.vecs[:count].cpu().numpy()  # host copy: oracles and the CPU plain run
+    log(f"phase 11 store: {count} rows from phase 7's state, {store.count_documents()} docs, "
+        f"RadiantTPU with its BM25 index built from the store in "
+        f"{timings['store_and_app_s']:.1f} s; index.use_graph {ic.use_graph}, graph_degree "
+        f"{ic.graph_degree}, graph_ef_runtime {ef}")
+
+    # -- (1) the auto path's exact build at 200,000 rows ------------------------------
+    ne = min(GRAPH_EXACT_ROWS, count)
+    check(ne <= GraphIndex.EXACT_BUILD_MAX_ROWS, "phase 11 exact rows")
+    g200 = GraphIndex(degree=GRAPH_DEGREE, device=card)
+    _, timings["exact_build_200k_s"] = timed(
+        lambda: g200.build(eng.vecs[:ne], valid=valid_h[:ne]))
+    rows200 = np.arange(ne)
+    want = exact_knn(eng.vecs[:ne], rows200, eng.valid[:ne], GRAPH_DEGREE)
+    got = g200.neighbors[:ne, :GRAPH_DEGREE].cpu().numpy().astype(np.int64)
+    bad = edge_misses(rows200, want, got, hv)
+    differ = int((want != got).any(axis=1).sum())
+    check(not bad, f"phase 11 exact build: {len(bad)} rows beyond a near-tie, e.g. {bad[:5]}")
+    log(f"phase 11 (1) GraphIndex(degree={GRAPH_DEGREE}).build over the first {ne} rows (the "
+        f"exact tiled build): {timings['exact_build_200k_s']:.2f} s; every row's "
+        f"{GRAPH_DEGREE} edges equal the exact top-{GRAPH_DEGREE} ({differ} rows differ only at "
+        f"near-ties within {EDGE_TIE})")
+    del g200, want, got
+
+    # -- (2) store.build_graph() over every row: NN-descent + polish ------------------
+    with LogRecords("radiant_rag_tpu_torch.index.graph") as rec:
+        _, timings["build_graph_s"] = timed(store.build_graph)
+    graph = eng.graph
+    check(graph is not None and graph.built_rows == count and store._default_mode() == "graph",
+          "phase 11 build_graph")
+    rounds = [x.args for x in rec.records if str(x.msg).startswith("nn-descent round")]
+    polish = [x.args[0] for x in rec.records if str(x.msg).startswith("cluster polish")]
+    check(rounds and polish, "phase 11: the descent logged no rounds")
+    numbers["rounds"] = len(rounds)
+    numbers["converged"] = any("converged" in str(x.msg) for x in rec.records)
+    numbers["per_round"] = [{"changes": a[1], "host_ms": round(a[4], 1),
+                             "device_span_ms": round(a[5], 1)} for a in rounds]
+    timings["polish_s"] = float(polish[0])
+    nb = graph.neighbors[:count].cpu().numpy()
+    knn = nb[:, :GRAPH_DEGREE]
+    live_or_pad = (knn == -1) | ((knn >= 0) & valid_h[np.maximum(knn, 0)])
+    srt = np.sort(knn, axis=1)
+    check(live_or_pad.all(), "phase 11: a KNN edge to a dead row")
+    check(not (knn == np.arange(count)[:, None]).any(), "phase 11: a self-edge")
+    check(not ((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any(), "phase 11: a repeated edge")
+    check(((nb[:, GRAPH_DEGREE:] >= 0) & valid_h[nb[:, GRAPH_DEGREE:]]).all(),
+          "phase 11: a long edge off the live pool")
+    arows = np.sort(np.random.default_rng(SEED + 40).choice(count, GRAPH_AGREE_ROWS,
+                                                            replace=False))
+    ex = exact_knn(eng.vecs[:count], arows, eng.valid[:count], GRAPH_DEGREE)
+    numbers["edge_agreement"] = float(np.mean([len(set(ex[j]) & set(knn[rw])) / GRAPH_DEGREE
+                                               for j, rw in enumerate(arows)]))
+    log(f"phase 11 (2) store.build_graph() over {count} rows (NN-descent + cluster polish): "
+        f"{timings['build_graph_s']:.1f} s, {numbers['rounds']} rounds (converged: "
+        f"{numbers['converged']}), polish {timings['polish_s']:.1f} s; per round (edge "
+        f"changes, host ms, device span ms): "
+        f"{[(x['changes'], x['host_ms'], x['device_span_ms']) for x in numbers['per_round']]}; "
+        f"structure: every KNN edge live or -1, no self-edge, no repeat; edge agreement with "
+        f"the exact top-{GRAPH_DEGREE} over {GRAPH_AGREE_ROWS} sampled rows "
+        f"{numbers['edge_agreement']:.4f} (reported, not gated)")
+    del nb, knn, srt, ex
+
+    # -- (3) serving: app.search_batch(mode="dense") in graph mode -----------------------
+    qrng = np.random.default_rng(SEED + 41)
+    pool = list(dict.fromkeys(" ".join(texts[i].split()[:6])
+                              for i in qrng.integers(0, N_DOCS, 12_000)))
+    r_deg = graph.neighbors.shape[1]
+    m_cells = ef * (r_deg + 1)
+    ms, eng_ms, bounds, off = {}, {}, {}, 0
+    for b in GRAPH_BUCKETS:
+        qs = pool[off:off + b]
+        off += b
+        hits, dl, dt = main_path(lambda qs=qs: app.search_batch(qs, mode="dense", use_cache=False))
+        check(not any(dl.values()), f"phase 11: graph search launched kernels {dl}")
+        check(len(hits) == b and all(hits), f"phase 11 B={b}: empty results")
+        ms[b] = dt * 1e3
+        embs = np.asarray(models.embed(qs), np.float32)
+        embs /= np.linalg.norm(embs, axis=1, keepdims=True)
+        _, t_e = timed(lambda: eng.search(embs, TOP_K, mode="graph", ef_runtime=ef))
+        eng_ms[b] = t_e * 1e3
+        bounds[b] = graph.steps * b * m_cells * DIM * 4 / HBM_BYTES_PER_S * 1e3
+    numbers.update({"search_batch_ms": ms, "engine_graph_ms": eng_ms, "bound_ms": bounds,
+                    "qps": {b: b / (ms[b] / 1e3) for b in GRAPH_BUCKETS}})
+    log(f"phase 11 (3) app.search_batch(mode='dense'), graph mode at ef {ef}, top_k {TOP_K}: "
+        f"ms per batch {json.dumps({b: round(v, 2) for b, v in ms.items()})}, QPS "
+        f"{json.dumps({b: round(v, 1) for b, v in numbers['qps'].items()})}; the engine's "
+        f"graph search alone (ms) {json.dumps({b: round(v, 2) for b, v in eng_ms.items()})} "
+        f"against the bound steps x B x ef(R+1) x D x 4 B / 3.35 TB/s "
+        f"{json.dumps({b: round(v, 3) for b, v in bounds.items()})}; no kernel launched")
+
+    rrng = np.random.default_rng(SEED + 42)
+    recall = {}
+    for noise in (0.25, LOW_NOISE):
+        qv = hv[rrng.integers(0, count, BATCH)] + noise * rrng.standard_normal(
+            (BATCH, DIM)).astype(np.float32)
+        qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+        ex50 = exact_top10(eng.vecs[:count], qv, eng.valid[:count], k=50)
+        gs, gr = eng.search(qv, TOP_K, mode="graph", ef_runtime=ef)
+        fs, fr = eng.search(qv, TOP_K, mode="int8", rescore_multiplier=q.rescore_multiplier,
+                            ef_runtime=ef)
+        exact_s = np.einsum("bd,bkd->bk", qv, hv[ex50[:, :TOP_K]])
+        recall[noise] = {
+            "graph": recall_at_10(gr, ex50[:, :TOP_K]),
+            "flat_int8": recall_at_10(fr, ex50[:, :TOP_K]),
+            "graph_top10_in_exact_top50": float(np.mean([len(set(gr[i]) & set(ex50[i])) / TOP_K
+                                                         for i in range(BATCH)])),
+            "graph_mean_score_regret": float(np.mean(exact_s.sum(1) - gs.sum(1)) / TOP_K),
+            "flat_mean_score_regret": float(np.mean(exact_s.sum(1) - fs.sum(1)) / TOP_K)}
+    numbers["recall_at_10"] = recall
+    log(f"phase 11 (3) recall@10 against exact fp32 over {count} rows, {BATCH} queries each "
+        f"(graph at ef {ef} / flat int8 at kc {ef}): {json.dumps(recall)}")
+    qp = np.asarray(models.embed(pool[off:off + GRAPH_HYBRID_B]), np.float32)
+    off += GRAPH_HYBRID_B
+    qp /= np.linalg.norm(qp, axis=1, keepdims=True)
+    try:
+        numbers["idle_share_b256"] = profile_batch(
+            lambda: eng.search(qp, TOP_K, mode="graph", ef_runtime=ef),
+            f"the engine's graph search, B={GRAPH_HYBRID_B}")
+    except Exception as exc:  # measurement only: report it, keep the run
+        log(f"profile: unavailable ({type(exc).__name__}: {exc}); device time not measured")
+    gathered = graph.steps * GRAPH_HYBRID_B * m_cells * DIM * 4
+    log(f"phase 11 (3) B={GRAPH_HYBRID_B}: gathered bytes {gathered} ({graph.steps} steps x "
+        f"{GRAPH_HYBRID_B} x {m_cells} x {DIM} x 4 B), bound "
+        f"{gathered / HBM_BYTES_PER_S * 1e3:.3f} ms")
+
+    # -- (4) the card's beam search against the port's plain run on the CPU ----------------
+    qc = qv[:GRAPH_PLAIN_Q]
+    built = graph.built_rows
+    mask = eng.valid[:built]
+    args = dict(k=TOP_K, ef=ef, steps=graph.steps)
+    on_card = graph_search(eng.vecs[:built], graph.neighbors, graph.entry_points,
+                           torch.from_numpy(qc).to(card), mask,
+                           entry_sample_rows=graph.entry_sample_rows,
+                           entry_sample_vecs=graph.entry_sample_vecs, **args)
+    t1 = time.perf_counter()
+    plain = graph_search(torch.from_numpy(hv[:built]), graph.neighbors.cpu(),
+                         graph.entry_points.cpu(), torch.from_numpy(qc), mask.cpu(),
+                         entry_sample_rows=graph.entry_sample_rows.cpu(),
+                         entry_sample_vecs=graph.entry_sample_vecs.cpu(), **args)
+    timings["cpu_plain_search_s"] = time.perf_counter() - t1
+    rows_close((on_card[0].cpu().numpy(), on_card[1].cpu().numpy()),
+               (plain[0].numpy(), plain[1].numpy()), "phase 11 card vs CPU beam search")
+    log(f"phase 11 (4) graph_search on the card equals the port's plain run on the CPU "
+        f"({GRAPH_PLAIN_Q} queries over {built} rows, ef {ef}; CPU "
+        f"{timings['cpu_plain_search_s']:.1f} s): rows equal, scores within 1e-5 but for ties")
+
+    # -- (6) the fused hybrid under use_graph -------------------------------------------------
+    hq = pool[off:off + GRAPH_HYBRID_B]
+    off += GRAPH_HYBRID_B
+    searcher, t_cal = timed(app._fused_searcher)
+    check(searcher is not None and store._default_mode() == "graph", "phase 11 hybrid searcher")
+    hits, dh, t_h = main_path(lambda: app.search_batch(hq, mode="hybrid", use_cache=False))
+    check(dh["int8_scan_topk"] >= 1, f"phase 11 hybrid launches {dh}")
+    kw = dict(dense_k=TOP_K, bm25_k=TOP_K, fused_k=TOP_K, rrf_k=r.rrf_k,
+              rescore_multiplier=q.rescore_multiplier, fusion=r.fusion_weighting)
+    qdev = embed_queries_device(models, searcher.engine, hq)
+    res_g = searcher.search_rows(None, hq, _qdev=qdev, mode="graph", **kw)
+    res_8 = searcher.search_rows(None, hq, _qdev=qdev, mode="int8", **kw)
+    legs_equal(res_g, res_8, "phase 11 hybrid: mode graph against int8")
+    check([_docs(h) for h in hits] == [_docs(h) for h in app._resolve_fused_rows(res_8, len(hq))],
+          "phase 11: search_batch(hybrid) differs from search_rows(mode='int8')")
+    log(f"phase 11 (6) app.search_batch(mode='hybrid') at B={GRAPH_HYBRID_B} under use_graph: "
+        f"{t_h * 1e3:.1f} ms (the BM25 device tables and the calibration before it "
+        f"{t_cal:.1f} s); its fused rows and scores equal search_rows(mode='int8') on every "
+        f"leg; launches {dh}")
+    del res_g, res_8, qdev
+
+    # -- (5) incremental insert through the query path -----------------------------------------
+    def insert_and_check(n_chunks, seed, label):
+        """Ingest n_chunks chunks, run one dense search (the query path
+        inserts them), time it against the next search, and hold sampled
+        new rows' out-edges to the exact top-16 and sampled targets' edges
+        to the weakest-edge oracle. A pre-insert target's edges before the
+        merge are its edges before the ingest; a new target's are its exact
+        out-edges (which no candidate displaces but at a tie)."""
+        base = eng.count
+        pre = graph.neighbors[:base, :GRAPH_DEGREE].cpu().numpy()
+        crng = np.random.default_rng(seed)
+        chunks = [IngestedChunk(" ".join(f"w{t}" for t in row), {"source": f"{label}/chunk{i}"})
+                  for i, row in enumerate(crng.zipf(1.3, size=(n_chunks, 48)) % 30_000)]
+        stats, t_ing = timed(lambda: app.ingest_chunks(chunks))
+        check(stats["chunks_ingested"] == n_chunks and eng.count == base + n_chunks
+              and graph.built_rows == base, (stats, eng.count, graph.built_rows))
+        nonlocal off
+        qs1, qs2 = pool[off:off + 1], pool[off + 1:off + 2]
+        off += 2
+        _, t_first = timed(lambda: app.search_batch(qs1, mode="dense", use_cache=False))
+        check(eng.graph is graph and graph.built_rows == eng.count,
+              f"phase 11: built_rows {graph.built_rows} != count {eng.count} after the search")
+        _, t_next = timed(lambda: app.search_batch(qs2, mode="dense", use_cache=False))
+        total = eng.count
+        hv2 = eng.vecs[:total].cpu().numpy()
+        live2 = eng.valid[:total].cpu().numpy()
+        nb2 = graph.neighbors[:total].cpu().numpy()
+        srng = np.random.default_rng(seed + 1)
+        new_rows = np.sort(srng.choice(np.arange(base, total), GRAPH_SAMPLE_NEW, replace=False))
+        want = exact_knn(eng.vecs[:total], new_rows, eng.valid[:total], GRAPH_DEGREE)
+        bad = edge_misses(new_rows, want, nb2[new_rows, :GRAPH_DEGREE].astype(np.int64), hv2)
+        check(not bad, f"phase 11 {label}: inserted rows' out-edges beyond a near-tie: {bad[:5]}")
+        chose = {}
+        for j, row in enumerate(nb2[base:total, :GRAPH_DEGREE]):
+            for t in row[row >= 0]:
+                chose.setdefault(int(t), []).append(base + j)
+        old_t = np.asarray(sorted(t for t in chose if t < base), np.int64)
+        new_t = np.asarray(sorted(t for t in chose if t >= base), np.int64)
+        n_old = min(len(old_t), GRAPH_BACK_TARGETS)
+        targets = np.concatenate([srng.choice(old_t, n_old, replace=False),
+                                  srng.choice(new_t, GRAPH_BACK_TARGETS - n_old, replace=False)])
+        cur = {int(t): pre[t] for t in targets[:n_old]}
+        for t, row in zip(targets[n_old:], exact_knn(eng.vecs[:total], targets[n_old:],
+                                                     eng.valid[:total], GRAPH_DEGREE)):
+            cur[int(t)] = row
+        oracle = np.stack([back_edge_oracle(t, cur[int(t)], chose[int(t)], live2, hv2,
+                                            GRAPH_DEGREE) for t in targets])
+        bad = edge_misses(targets, oracle, nb2[targets, :GRAPH_DEGREE].astype(np.int64), hv2)
+        check(not bad, f"phase 11 {label}: back-edges differ from the weakest-edge oracle: "
+                       f"{bad[:5]}")
+        gained = int(sum((nb2[t, :GRAPH_DEGREE] >= base).any() for t in targets[:n_old]))
+        _, sr = eng.search(hv2[new_rows], TOP_K, mode="graph", ef_runtime=ef)
+        out = {"ingest_s": t_ing, "first_search_with_insert_s": t_first,
+               "insert_s": t_first - t_next, "pre_insert_targets": int(len(old_t)),
+               "old_targets_checked": n_old, "old_targets_gaining_a_new_row": gained,
+               "rank1_share": float(np.mean(sr[:, 0] == new_rows))}
+        log(f"phase 11 (5) {label}: ingest_chunks of {n_chunks} chunks {t_ing:.1f} s, then one "
+            f"dense search {t_first:.2f} s (the next {t_next * 1e3:.1f} ms: the query path's "
+            f"insertion ~{out['insert_s']:.2f} s); built_rows {graph.built_rows} == count "
+            f"{eng.count}; {GRAPH_SAMPLE_NEW} sampled new rows' out-edges equal the exact "
+            f"top-{GRAPH_DEGREE} over the live corpus; {GRAPH_BACK_TARGETS} sampled targets' "
+            f"edges ({n_old} of {len(old_t)} pre-insert targets, {gained} of them now pointing "
+            f"at a new row; the rest new rows) equal the weakest-edge oracle; a search by their "
+            f"own vector returns {out['rank1_share']:.4f} of {GRAPH_SAMPLE_NEW} new rows at "
+            f"rank 1; stale fraction {graph.stale_fraction:.4f}")
+        return out
+
+    numbers["insert"] = insert_and_check(INGEST_CHUNKS, SEED + 43, "insert")
+    # a second, smaller ingest: its rows sit among the first ingest's (one
+    # encoder embeds both), so its targets are pre-insert rows whose edges
+    # the weakest-edge merge rewrites
+    numbers["insert_again"] = insert_and_check(GRAPH_SECOND_INGEST, SEED + 45, "insert again")
+    check(numbers["insert_again"]["old_targets_checked"] == GRAPH_BACK_TARGETS,
+          "phase 11: too few pre-insert targets for the back-edge check")
+
+    numbers["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log("phase 11 summary: " + json.dumps({"device": smi, "rows": count, "timings_s": timings,
+                                           **numbers}, default=str))
+    del app, store, graph, eng, hv, state
 
 if __name__ == "__main__":
     try:

@@ -479,7 +479,6 @@ class AppConfig:
 _SECTIONS = {f.name: f.default_factory for f in fields(AppConfig)}
 ENV_PREFIX = "RADIANT"
 _NEITHER = "read by neither package"
-_GRAPH = "the graph engine, ROADMAP queue A item 10"
 _REST = "ROADMAP queue A item 11 (rest)"
 _EXPORTER = f"the metrics exporter (utils/metrics_export.py) is not ported yet, {_REST}"
 _REMOTE = f"only the non-jax backends (llm/model_backends.py) read it, {_REST}"
@@ -492,7 +491,7 @@ _WEB = f"web search and the crawlers are not ported yet, {_REST}"
 _NOT_PORTED = {
     "index": {"metric": _NEITHER + " (cosine only)",
               "growth_factor": _NEITHER + " (the engine grows by CAPACITY_QUANTUM)",
-              "graph_degree": _GRAPH, "graph_ef_construction": _GRAPH},
+              "graph_ef_construction": _NEITHER},
     "quantization": {"int8_on_disk_only": _NEITHER},
     "embedding": {"backend": _REMOTE, "model_name": _REMOTE},
     "cross_encoder": {"backend": _REMOTE, "model_name": _NEITHER},

@@ -20,7 +20,9 @@ Modes: "exact" (fp32 scan), "binary" (two-stage, stage 1 in the fused
 Hamming scan -> top-k kernel; the JAX package's default) and "int8"
 (two-stage, stage 1 in the fused int8 scan -> top-k kernel). Both two-stage
 modes rescore in fp32, or from dequantized int8 in fp32-free mode. "graph"
-raises NotImplementedError until its ROADMAP item lands.
+searches the KNN graph that `build_graph` built (`index/graph.py`), and
+falls back to "int8" without fp32 vectors or before a build, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -116,6 +118,7 @@ class DeviceVectorIndex:
         self.stage1_select = stage1_select or "f32"
         self._calibrated = False
         self.calibration_sample = calibration_sample
+        self.graph = None  # the KNN-graph engine, built on demand (build_graph)
         self._alloc(self.capacity)
         # identity dequant until calibration
         self.i8_lo = torch.full((dim,), -1.0, dtype=torch.float32, device=self.device)
@@ -275,21 +278,26 @@ class DeviceVectorIndex:
                level_code: int = -1, lang_code: int = -1
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Returns (scores (B, k) f32, rows (B, k) int64; -1 = no result)."""
-        if mode == "graph":
-            raise NotImplementedError(
-                "mode='graph' is not ported yet: ROADMAP queue A item 10 (graph engine)")
         if self.count == 0:
             b = queries.shape[0]
             return np.full((b, k), -1e30, np.float32), np.full((b, k), -1, np.int64)
-        if mode == "exact" and not self.store_fp32:
+        if mode in ("graph", "exact") and not self.store_fp32:
             mode = "int8"  # fp32-free mode has no exact vectors
-        max_b = self.max_query_bucket(score_gated=mode == "exact")
+        if mode == "graph" and (self.graph is None or self.graph.built_rows == 0):
+            mode = "int8"  # graph not built -> flat fallback
+        # graph search holds no (B, N) buffer: its batch limit is the
+        # largest bucket
+        max_b = (self.QUERY_BUCKETS[-1] if mode == "graph"
+                 else self.max_query_bucket(score_gated=mode == "exact"))
         if queries.shape[0] > max_b:  # chunk oversized batches
             parts = [self.search(queries[s:s + max_b], k, mode, rescore_multiplier,
                                  ef_runtime, level_code, lang_code)
                      for s in range(0, queries.shape[0], max_b)]
             return (np.concatenate([p[0] for p in parts]),
                     np.concatenate([p[1] for p in parts]))
+        if mode == "graph":
+            return self._graph_mode_search(np.asarray(queries, np.float32), k, ef_runtime,
+                                           level_code, lang_code)
         k_eff = min(k, self.capacity)
         kc = int(max(k_eff, round(k_eff * rescore_multiplier)))
         if ef_runtime:
@@ -311,6 +319,86 @@ class DeviceVectorIndex:
             scores = np.pad(scores, ((0, 0), (0, k - k_eff)), constant_values=-1e30)
             rows = np.pad(rows, ((0, 0), (0, k - k_eff)), constant_values=-1)
         return scores, rows
+
+    # -- graph (HNSW-equivalent) -------------------------------------------
+    def build_graph(self, degree: int = 16, n_long_edges: int = 4,
+                    n_entry_points: int = 16, steps: int = 6) -> None:
+        """Build the KNN-graph engine over the current rows (`index/graph.py`)
+        from the resident vectors, without a host copy of the corpus. An
+        offline step: rows appended later are inserted by extend_graph."""
+        from radiant_rag_tpu_torch.index.graph import GraphIndex
+
+        if self.count == 0:
+            return
+        self.graph = GraphIndex(degree=degree, n_long_edges=n_long_edges,
+                                n_entry_points=n_entry_points, steps=steps,
+                                device=self.device)
+        self.graph.build(self.vecs[:self.count],
+                         valid=self.valid[:self.count].cpu().numpy())
+
+    def extend_graph(self, max_stale_fraction: float = 0.5,
+                     allow_rebuild: bool = True) -> None:
+        """Make rows appended since the last build visible to graph search.
+
+        Incremental insert (`GraphIndex.add`: exact out-edges + weakest-edge
+        back-edges). A full rebuild replaces it once incrementally inserted
+        rows exceed `max_stale_fraction` of the graph (old nodes' edges are
+        only patched, never re-derived); allow_rebuild=False skips that (the
+        query path, which must never absorb an unbounded rebuild: the insert
+        is O(new x N), a rebuild O(N x C x iters))."""
+        if not self.store_fp32:
+            return  # fp32-free mode has no vectors to build edges from
+        if self.graph is None or self.graph.built_rows == 0:
+            if allow_rebuild:
+                self.build_graph()
+            return
+        built = self.graph.built_rows
+        if built >= self.count:
+            return
+        projected = (self.count - self.graph._full_built_rows) / self.count
+        if projected > max_stale_fraction:
+            if not allow_rebuild:
+                logger.warning(
+                    "graph %.0f%% stale (> %.0f%%); serving the stale graph — "
+                    "call build_graph()/extend_graph() to refresh",
+                    projected * 100, max_stale_fraction * 100)
+                return
+            self.build_graph(degree=self.graph.degree,
+                             n_long_edges=self.graph.n_long_edges,
+                             n_entry_points=self.graph.n_entry_points,
+                             steps=self.graph.steps)
+            return
+        self.graph.add(self.vecs, built, self.count - built,
+                       valid=self.valid.cpu().numpy())
+
+    def _graph_search(self, queries: np.ndarray, k: int, ef: int,
+                      level_code: int, lang_code: int) -> Tuple[np.ndarray, np.ndarray]:
+        mask = row_mask(self.valid, self.level, self.lang, level_code, lang_code)
+        # the graph covers rows [0, built_rows); newer rows are masked out
+        built = self.graph.built_rows
+        return self.graph.search(self.vecs[:built], queries, k, ef=ef, mask=mask[:built])
+
+    def _graph_mode_search(self, queries: np.ndarray, k: int, ef_runtime: Optional[int],
+                           level_code: int, lang_code: int) -> Tuple[np.ndarray, np.ndarray]:
+        """search(mode="graph") over a built graph, rows appended since the
+        build inserted first when they are few."""
+        delta = self.count - self.graph.built_rows
+        if 0 < delta <= max(20_000, self.count // 10):
+            # bounded: never a full rebuild in the query path, and only
+            # modest growth (the insert is O(new x N))
+            self.extend_graph(max_stale_fraction=1.0, allow_rebuild=False)
+        elif delta > 0:
+            logger.warning(
+                "graph is %d rows behind the corpus — too many for query-path "
+                "insertion; serving the stale graph (new rows need flat search "
+                "or an explicit build_graph())", delta)
+        kg = min(k, self.graph.built_rows)
+        s, i = self._graph_search(queries, kg, ef=int(ef_runtime or max(64, 4 * k)),
+                                  level_code=level_code, lang_code=lang_code)
+        if kg < k:
+            s = np.pad(s, ((0, 0), (0, k - kg)), constant_values=-1e30)
+            i = np.pad(i, ((0, 0), (0, k - kg)), constant_values=-1)
+        return s, i
 
     def two_stage(self, queries: torch.Tensor, mask: torch.Tensor, k: int, kc: int,
                   mode: str, select: str) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -9,8 +9,13 @@ package loads the other's saved directory.
 
 `index.docstore: spill` keeps the content out of core (`SpillDocStore`
 under `<data_dir>/docs_spill`, of `docstore_cache_docs` hot docs); loading
-an in-RAM directory with it migrates the docs once. Not here: `build_graph`
-raises until the graph engine is ported (ROADMAP queue A item 10).
+an in-RAM directory with it migrates the docs once.
+
+`index.use_graph: true` plus `build_graph()` serves the store's own dense
+retrieval from the engine's KNN graph (`index/graph.py`, degree
+`index.graph_degree`, beam width `index.graph_ef_runtime`); before the
+build, and after a restart (neither package saves the graph), it serves
+the flat scan.
 """
 
 from __future__ import annotations
@@ -87,15 +92,19 @@ class TpuVectorStore(BaseVectorStore):
         return self._default_mode()
 
     def _default_mode(self) -> str:
-        """precision "binary" scans the sign words, "int8" and "both" the
-        int8 codes; quantization off is the exact scan."""
+        """"graph" under use_graph once a graph is built; otherwise precision
+        "binary" scans the sign words, "int8" and "both" the int8 codes, and
+        quantization off is the exact scan."""
+        graph = self.engine.graph
+        if self.index_config.use_graph and graph is not None and graph.built_rows > 0:
+            return "graph"
         if not self.quantization.enabled:
             return "exact"
         return _MODE_OF_PRECISION[self.quantization.precision]
 
     def build_graph(self) -> None:
-        raise NotImplementedError(
-            "the graph engine is not ported yet: ROADMAP queue A item 10")
+        """Build the KNN-graph engine over the current rows."""
+        self.engine.build_graph(degree=self.index_config.graph_degree)
 
     # -- BaseVectorStore ---------------------------------------------------
     def ping(self) -> bool:

@@ -16,7 +16,7 @@ import torch
 
 from radiant_rag_tpu_torch.ops import cuda_kernels as ck
 
-from _torch_parity import assert_result_match
+from _torch_parity import assert_edges_match, assert_result_match
 
 pytestmark = pytest.mark.cuda
 
@@ -595,3 +595,65 @@ def test_pod_on_card_equals_cpu(card, shards):
             want = eng.search(q / np.linalg.norm(q, axis=1, keepdims=True), 10, mode="exact")
             assert_result_match({"exact": want}, {"exact": got}, "exact merge")
     assert_result_match(out["cpu"], out["cuda"], f"{shards} shard(s)")
+
+
+def _clustered(seed, n, d):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((16, d)).astype(np.float32)
+    v = centers[rng.integers(0, 16, n)] + 0.4 * rng.standard_normal((n, d)).astype(np.float32)
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def test_graph_engine_on_card_equals_cpu(card):
+    """The exact build and the beam search on the card against the port's
+    plain run on the CPU over a 4,096-row graph: the same edges up to
+    near-ties; over one graph (the CPU's, carried to the card) the same
+    rows, scores within tests/_torch_parity.py's rule."""
+    from radiant_rag_tpu_torch.index.graph import GraphIndex
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    n, d = 4096, 384
+    vecs = _clustered(40, n, d)
+    q = _clustered(41, 64, d)
+    idx = {dev: GraphIndex(degree=16, n_long_edges=4, steps=6, device=dev)
+           for dev in ("cpu", "cuda")}
+    for dev, gi in idx.items():
+        gi.build(torch.from_numpy(vecs).to(dev))
+    assert_edges_match(idx["cpu"].neighbors.numpy(), idx["cuda"].neighbors.cpu().numpy(),
+                       vecs, 16, what="exact build")
+    cpu, gpu = idx["cpu"], idx["cuda"]
+    for name in ("neighbors", "entry_points", "entry_sample_rows", "entry_sample_vecs"):
+        setattr(gpu, name, getattr(cpu, name).to(card))
+    mask = torch.from_numpy(np.random.default_rng(42).random(n) > 0.1)
+    for ef in (16, 100):
+        ws, wi = cpu.search(torch.from_numpy(vecs), q, k=10, ef=ef, mask=mask)
+        gs, gi_ = gpu.search(torch.from_numpy(vecs).to(card), q, k=10, ef=ef,
+                             mask=mask.to(card))
+        assert_result_match({"graph": (ws, wi)}, {"graph": (gs, gi_)}, f"ef {ef}")
+
+
+def test_two_level_descent_on_card(card, monkeypatch):
+    """nn_descent_graph's two_level path (above 2^18 live rows; too slow for
+    the CPU suite) on the card: it runs the subsample descent and the
+    nearest-sample init, and its graph is well formed: every KNN edge a
+    live row other than its source, no row repeating an edge, long edges
+    from the live pool."""
+    from radiant_rag_tpu_torch.index import graph as tg
+
+    n, deg = 270_000, 4
+    vecs = _clustered(43, n, 8)
+    valid = np.ones(n, bool)
+    valid[::1000] = False  # 269,730 live rows
+    calls = []
+    nearest = tg._nearest_sample_block
+    monkeypatch.setattr(tg, "_nearest_sample_block",
+                        lambda *a: calls.append(1) or nearest(*a))
+    adj = tg.nn_descent_graph(torch.from_numpy(vecs).to(card), degree=deg, n_long_edges=2,
+                              iters=2, valid=valid, two_level=True)
+    assert calls and adj.shape == (n, deg + 2) and adj.dtype == np.int32
+    knn = adj[:, :deg]
+    assert (knn >= 0).all() and valid[knn].all()
+    assert not (knn == np.arange(n)[:, None]).any()
+    srt = np.sort(knn, axis=1)
+    assert not (srt[:, 1:] == srt[:, :-1]).any()
+    assert valid[adj[:, deg:]].all()

@@ -130,8 +130,11 @@ def test_bucket_gate_and_unported_modes():
     s_big, r_big = t.search(np.concatenate([q] * 5), 10, mode="exact")  # chunked at 64
     s, r = t.search(q, 10, mode="exact")
     np.testing.assert_array_equal(r_big, np.concatenate([r] * 5))
-    # binary is ported (not score-gated: no (B, N) buffer); graph is not
+    # binary is ported (not score-gated: no (B, N) buffer); graph without a
+    # built graph is the int8 search, as in the JAX package
     s_bin, r_bin = t.search(np.concatenate([q] * 5), 10, mode="binary")
     np.testing.assert_array_equal(r_bin, np.concatenate([t.search(q, 10, mode="binary")[1]] * 5))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 10"):
-        t.search(q, 10, mode="graph")
+    s_g, r_g = t.search(q, 10, mode="graph")
+    s_8, r_8 = t.search(q, 10, mode="int8")
+    np.testing.assert_array_equal(r_g, r_8)
+    np.testing.assert_array_equal(s_g, s_8)

@@ -103,6 +103,33 @@ def test_blockmax_select_matches_jax(world):
     assert_result_match(ref, got, "blockmax")
 
 
+def test_graph_mode_runs_the_int8_stage_like_jax(world):
+    """Under index.use_graph the app hands search_rows mode="graph": with a
+    graph built on both engines, each package's fused hybrid still runs the
+    int8 stage 1, so its dense leg equals its own mode="int8" search
+    exactly; the BM25 and fused legs, which no mode touches, match under
+    the parity rule (the BM25 scatter-add order is not fixed)."""
+    engines = (world["j"].engine, world["t"].engine)
+    try:
+        for eng in engines:
+            eng.build_graph(degree=8)
+        assert engines[1].graph.built_rows == N
+        for bm25_mode in ("sketch", "pages"):
+            ref_g, got_g = _both(world, world["q"], world["qt"], mode="graph",
+                                 bm25_mode=bm25_mode, fused_depth=40)
+            ref_8, got_8 = _both(world, world["q"], world["qt"], mode="int8",
+                                 bm25_mode=bm25_mode, fused_depth=40)
+            for g, i8 in ((ref_g, ref_8), (got_g, got_8)):
+                for part in (0, 1):  # scores, rows
+                    np.testing.assert_array_equal(np.asarray(g["dense"][part]),
+                                                  np.asarray(i8["dense"][part]))
+                assert_result_match(i8, g, f"graph against int8, {bm25_mode}")
+            assert_result_match(ref_g, got_g, f"graph mode {bm25_mode}")
+    finally:
+        for eng in engines:
+            eng.graph = None
+
+
 def test_exact_dense_mode_matches_jax(world):
     ref, got = _both(world, world["q"], world["qt"], mode="exact", bm25_mode="pages")
     assert_result_match(ref, got, "exact dense")

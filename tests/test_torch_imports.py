@@ -20,7 +20,7 @@ bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "radiant_rag_tpu" or m.startswith("radiant_rag_tpu.")]
 assert not bad, bad
-new = {"config", "index.base", "index.doc", "index.docstore", "index.factory",
+new = {"config", "index.base", "index.doc", "index.docstore", "index.factory", "index.graph",
        "index.numpy_store", "index.store", "models", "models.bert", "models.cross_encoder",
        "models.device_rerank", "models.embedder", "models.hf_loading", "models.pretrained",
        "models.registry", "models.tokenizer", "utils.cache", "app", "server", "orchestrator",

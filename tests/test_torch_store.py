@@ -270,8 +270,13 @@ def test_factory_backends_and_persisted_dim(tmp_path):
     spill = TpuVectorStore(D, tcfg.IndexConfig(dim=D, docstore="spill",
                                                data_dir=str(tmp_path / "spill")), device="cpu")
     assert type(spill.docstore).__name__ == "SpillDocStore"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 10"):
-        store.build_graph()
+    graph = create_vector_store(tcfg.config_from_dict(
+        {"index": {**base["index"], "use_graph": True, "graph_degree": 4}}), device="cpu")
+    assert graph.count_documents() == store.count_documents()
+    assert graph._default_mode() == "int8"  # flat until the build
+    graph.build_graph()
+    assert graph.engine.graph.built_rows == graph.engine.count and \
+        graph.engine.graph.degree == 4 and graph._default_mode() == "graph"
 
 
 PRESETS = ["config.example.yaml", "config.memory-optimized.example.yaml",
@@ -300,7 +305,7 @@ def test_chip_smoke_preset_literal_is_the_shipped_file():
 
 @pytest.mark.parametrize("section,key,value,reason", [
     ("index", "metric", "dot", "neither package"),
-    ("index", "graph_degree", 32, "queue A item 10"),
+    ("index", "graph_ef_construction", 400, "neither package"),
     ("index", "growth_factor", 3.0, "neither package"),
     ("quantization", "int8_on_disk_only", "true", "neither package"),
     ("language", "enabled", "true", "queue A item 11"),

@@ -104,6 +104,22 @@ seed: 1M docs of clustered 384-d vectors and zipfian 48-token texts):
            the exact top-16, back-edges to a numpy oracle of the
            weakest-edge rule). The graph path is plain PyTorch: no kernel
            row of its own.
+  phase 12 the query path's host layers over phase 7's app (after phase
+           11): the language phase (32 runs of phase 8's questions in
+           German, French, Spanish and English, each held exactly against
+           a direct run of the English question), web search over a
+           loopback `http.server` site (73 pages; a blocked domain, the TTL
+           cache), the crawled ingests (`ingest_urls` at depth 2,
+           `ingest_github` of the checkout's own sources served as a GitHub
+           look-alike, then `/ingest/urls` and `/ingest/github` beside
+           /search clients, every answer held against `search_batch` of its
+           batch, each page's phrase at rank 1), the reports and the CLI
+           (`ingest`, `query --report`, `search --save`, `tui` in
+           subprocesses), the metrics exporters (ImportError naming a
+           missing package), a `torch.profiler` trace of one agentic run
+           and `device_timer` against CUDA events, and the template agent's
+           MMR on the card against the CPU. Host layers: no kernel of
+           their own.
 
 Prints the card's name and power limit, the phases' numbers, one
 {"kernels": [...]} JSON line, and as its last line
@@ -117,6 +133,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import os
 import re
 import subprocess
 import sys
@@ -1894,6 +1911,12 @@ def phase_serving(ck, main_path, vecs, texts, smi, known_keys):
     t11 = time.perf_counter()
     phase_graph(ck, main_path, app, vecs, texts, smi, d)
     log(f"phase 11: {time.perf_counter() - t11:.1f} s")
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    host_keys = phase_host_layers(ck, main_path, app, questions, texts, smi, d)
+    log(f"phase 12: {time.perf_counter() - t12:.1f} s")
+    known = set(known_keys) | {row["_key"] for row in rows}
+    rows += path_rows(ck, eng, bm, qdev2k, qt2k, sorted(host_keys - known), "host layers")
     del app, store, models, searcher, res, res2k, qdev, qdev2k
     tmp.cleanup()
     return rows
@@ -3923,6 +3946,736 @@ def phase_graph(ck, main_path, app7, vecs, texts, smi, d, card=None):
     log("phase 11 summary: " + json.dumps({"device": smi, "rows": count, "timings_s": timings,
                                            **numbers}, default=str))
     del app, store, graph, eng, hv, state
+
+
+# phase 12: the query path's host layers (the language phase, web search,
+# the crawled ingests and their routes, reports and the CLI, the metrics
+# exporters, profiling, the agent template) over phase 7's app
+LANG_QUESTIONS = 8  # phase 8's questions, each rendered in de, fr, es and en: 32 runs
+LANG_TEMPLATES = {
+    "de": "Was sagen die Dokumente über die Begriffe {q} und warum ist das für die "
+          "Forschung wichtig?",
+    "fr": "Que disent les documents sur les termes {q} et pourquoi est-ce important pour la "
+          "recherche?",
+    "es": "¿Qué dicen los documentos sobre los términos {q} y por qué es importante para la "
+          "investigación?",
+    "en": "What do the documents say about the terms {q} and why does it matter for the "
+          "research?",
+}
+WEB_SECTIONS, WEB_LEAVES = 8, 8  # the loopback site: a root, 8 sections of 8 pages each
+WEB_RUNS = 16  # agentic runs whose plan asks for the web
+WEB_URLS = 3  # web_search.max_urls
+HOST_CLIENTS = 8  # /search clients beside the crawler routes
+GH_REPOS = {  # two repositories served from the checkout's own sources
+    "port": ("README.md", "radiant_rag_tpu_torch/agents/web_search.py",
+             "radiant_rag_tpu_torch/ingestion/web_crawler.py",
+             "radiant_rag_tpu_torch/ingestion/github_crawler.py",
+             "radiant_rag_tpu_torch/ui/reports.py", "radiant_rag_tpu_torch/agents/registry.py"),
+    "docs": ("radiant_rag_tpu_torch/ui/tui_model.py", "radiant_rag_tpu_torch/agents/chunking.py"),
+}
+MMR_K = 10
+
+
+def web_phrase(tag) -> str:
+    """A page's whole text: words no corpus text holds."""
+    return f"zebra{tag} quokka{tag} lantern{tag} marmot{tag}"
+
+
+class LoopbackSite:
+    """An `http.server` on 127.0.0.1:0 serving generated pages (each page's
+    text is its phrase; links carry no text) and a GitHub look-alike: the
+    repository and tree JSON of the git API and the raw files, for
+    `GitHubCrawler.API` / `RAW` pointed at it. Every path it serves is
+    logged in `hits`."""
+
+    def __init__(self, repo: Path):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.pages, self.hits = {}, []
+        self.phrases = {}  # path -> the page's text
+        self._add_site("/", "a", WEB_SECTIONS, WEB_LEAVES)
+        self._add_site("/b/", "b", 2, 4)
+        self.pages["/never.html"] = self._html("never", [])
+        for name, paths in GH_REPOS.items():
+            tree = {"tree": [{"path": p, "type": "blob"} for p in paths]}
+            self.pages[f"/repos/radiant/{name}"] = (
+                json.dumps({"default_branch": "main"}).encode(), "application/json")
+            self.pages[f"/repos/radiant/{name}/git/trees/main?recursive=1"] = (
+                json.dumps(tree).encode(), "application/json")
+            for p in paths:
+                self.pages[f"/radiant/{name}/main/{p}"] = ((repo / p).read_bytes(), "text/plain")
+        site = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):
+                site.hits.append(self.path)
+                if self.path not in site.pages:
+                    self.send_error(404)
+                    return
+                body, ctype = site.pages[self.path]
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.root = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    @staticmethod
+    def _html(tag, links):
+        anchors = "".join(f'<a href="{link}"></a>' for link in links)
+        return (f"<html><head><title>{tag}</title></head><body><p>{web_phrase(tag)}</p>"
+                f"{anchors}</body></html>").encode(), "text/html; charset=utf-8"
+
+    def _add_site(self, root, prefix, sections, leaves):
+        sec = [f"{root}s{k}.html" for k in range(sections)]
+        self.pages[root] = self._html(f"{prefix}root", sec)
+        self.phrases[root] = web_phrase(f"{prefix}root")
+        for k, s in enumerate(sec):
+            kids = [f"{root}p{k * leaves + j}.html" for j in range(leaves)]
+            self.pages[s] = self._html(f"{prefix}s{k}", kids)
+            self.phrases[s] = web_phrase(f"{prefix}s{k}")
+            for j, kid in enumerate(kids):
+                self.pages[kid] = self._html(f"{prefix}p{k * leaves + j}", [])
+                self.phrases[kid] = web_phrase(f"{prefix}p{k * leaves + j}")
+
+    def site_pages(self, root):
+        return {p: t for p, t in self.phrases.items() if p.startswith(root) and
+                (root != "/" or not p.startswith("/b/"))}
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=30)
+
+
+class HostLayersLLM(ScriptedLLM):
+    """Phase 8's scripted LLM over no indexed question (no critic retry,
+    no multihop), which also translates the rendered questions back to
+    English (counting its calls), suggests the web pages of the questions
+    that have some, and plans web search for those."""
+
+    def __init__(self, translations, web_urls):
+        super().__init__([])
+        self.translations, self.web_urls = translations, web_urls
+        self.translated = {}
+
+    def __call__(self, messages):
+        last = messages[-1]["content"]
+        if last.startswith("Translate the following text"):
+            text = last.split("\n\n", 1)[1]
+            with self.lock:
+                self.translated[text] = self.translated.get(text, 0) + 1
+            return self.translations[text]
+        if "public web page URLs" in last:
+            return json.dumps(self.web_urls.get(self._after(last, "Query: "), []))
+        if "query-planning agent" in last:
+            plan = json.loads(super().__call__(messages))
+            plan["use_web_search"] = self._after(last, "Query: ") in self.web_urls
+            return json.dumps(plan)
+        return super().__call__(messages)
+
+
+def _widget_text(widget) -> str:
+    """The plain text a Textual `Static` shows (`content` in newer Textual,
+    `renderable` in older)."""
+    for attr in ("content", "renderable"):
+        value = getattr(widget, attr, None)
+        if value is not None and not callable(value):
+            return str(value)
+    return str(widget.render())
+
+
+def drive_textual_tui(rag_app, question: str, save_dir: Path, timeout_s: float = 120.0):
+    """The Textual frontend headless (`App.run_test`'s pilot): `question`
+    typed into the input and submitted, the run awaited, the timeline and
+    every tab read back, and ctrl+s pressed (its report lands in
+    `save_dir`). Returns (session, tab texts, timeline text, report paths)."""
+    import asyncio
+
+    from radiant_rag_tpu_torch.ui import tui
+    from radiant_rag_tpu_torch.ui.tui_model import TAB_NAMES
+
+    async def pilot_run():
+        ui = tui.AgenticRAGApp(rag_app)
+        async with ui.run_test(size=(120, 48)) as pilot:
+            box = ui.query_one("#query", tui.Input)
+            box.focus()
+            box.value = question
+            await pilot.press("enter")
+            deadline = time.monotonic() + timeout_s
+            while time.monotonic() < deadline:
+                await pilot.pause(0.05)
+                if not ui.session.running and ui.session.result is not None and \
+                        _widget_text(ui.query_one("#content-overview", tui.Static)).strip():
+                    break
+            tabs = {name: _widget_text(ui.query_one(f"#content-{name}", tui.Static))
+                    for name in TAB_NAMES}
+            timeline = _widget_text(ui.query_one("#timeline", tui.Static))
+            await pilot.press("ctrl+s")
+            await pilot.pause(0.2)
+        return ui.session, tabs, timeline
+
+    cwd = os.getcwd()
+    save_dir.mkdir(parents=True, exist_ok=True)
+    os.chdir(save_dir)  # ctrl+s writes report-<time>.md into the working directory
+    try:
+        session, tabs, timeline = asyncio.run(pilot_run())
+    finally:
+        os.chdir(cwd)
+    return session, tabs, timeline, sorted(save_dir.glob("report-*.md"))
+
+
+def phase_host_layers(ck, main_path, app, questions, texts, smi, d, card=None):
+    """Phase 12: the query path's host layers over phase 7's app (1,016,384
+    leaf rows, MiniLM-L12-width bf16 models, kc = 240). (a) the language
+    phase: phase 8's questions in German, French, Spanish and English
+    through an orchestrator with `language.enabled`, each run's fused and
+    reranked docs held exactly against a direct run of the English
+    question; (b) web search over a loopback site (a blocked domain, the
+    TTL cache); (c) the crawled ingests: `ingest_urls` at depth 2 and
+    `ingest_github`, then `/ingest/urls` and `/ingest/github` beside
+    /search clients, every answer held against `search_batch` of its batch,
+    and each page's phrase at rank 1 of a hybrid `search_batch`; (d) the
+    reports and the CLI (`ingest`, `query --report`, `search --save`, `tui`
+    in subprocesses), then the Textual frontend headless over this app
+    (`drive_textual_tui`); (e) the metrics exporters; (f) a `torch.profiler`
+    trace of one agentic run and `device_timer` against CUDA events; (g)
+    the template agent's MMR on the card against the CPU. Returns the
+    (kernel, D or W, k, B) shapes its main paths launched."""
+    import dataclasses
+    import http.client
+    import importlib.util
+    import os
+    import threading
+
+    import torch
+
+    from radiant_rag_tpu_torch.agents import agent_template
+    from radiant_rag_tpu_torch.agents.base import new_agent_context
+    from radiant_rag_tpu_torch.agents.base_agent import BaseAgent
+    from radiant_rag_tpu_torch.ingestion import github_crawler
+    from radiant_rag_tpu_torch.ingestion.web_crawler import WebCrawler
+    from radiant_rag_tpu_torch.llm.backends import MockLLMBackend
+    from radiant_rag_tpu_torch.llm.client import LLMClient
+    from radiant_rag_tpu_torch.orchestrator import RAGOrchestrator
+    from radiant_rag_tpu_torch.server import make_server
+    from radiant_rag_tpu_torch.ui.reports import QueryReport, save_search_report
+    from radiant_rag_tpu_torch.utils.profiling import annotate, device_timer, profiler_trace
+
+    card = torch.device("cuda", 0) if card is None else torch.device(card)
+    repo = Path(__file__).resolve().parent
+    orch, hy, store, models = app.orchestrator, app.orchestrator._hybrid, app.store, app.local_models
+    cfg = app.config
+    launched, numbers = set(), {}
+
+    def drive(fn):
+        out, delta, dt = main_path(fn)
+        launched.update(ck.launches_by_shape)
+        return out, delta, dt
+
+    def run_all(o, qs):
+        results, walls = [], []
+        for q in qs:
+            t = time.perf_counter()
+            results.append(o.run(q))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        return results, walls
+
+    def docs_of(hits):
+        return [(dd.doc_id, s) for dd, s in hits]
+
+    site = LoopbackSite(repo)
+    english, rendered = {}, []
+    for q in questions[:LANG_QUESTIONS]:
+        english[q] = LANG_TEMPLATES["en"].format(q=q)
+        rendered += [(code, LANG_TEMPLATES[code].format(q=q), english[q])
+                     for code in ("de", "fr", "es", "en")]
+    translations = {r: e for code, r, e in rendered if code != "en"}
+    web_q = [LANG_TEMPLATES["en"].format(q=q)
+             for q in questions[LANG_QUESTIONS:LANG_QUESTIONS + WEB_RUNS]]
+    leaves = [p for p in site.site_pages("/") if "/p" in p]
+    web_urls = {}
+    for i, q in enumerate(web_q):
+        urls = [site.root + leaves[(WEB_URLS * i + j) % len(leaves)] for j in range(WEB_URLS)]
+        if i % 4 == 0:  # a blocked domain first: skipped, never fetched
+            urls.insert(0, f"http://localhost:{site.root.rsplit(':', 1)[1]}/never.html")
+        web_urls[q] = urls
+    script = HostLayersLLM(translations, web_urls)
+    llm12 = LLMClient(cfg.llm, backend=MockLLMBackend(responder=script))
+    base = dataclasses.replace(
+        cfg, strategy_memory=dataclasses.replace(cfg.strategy_memory, enabled=False),
+        rerank=dataclasses.replace(cfg.rerank, auto_disable_probes=0))
+
+    def orchestrator(c, crawler=None):
+        o = RAGOrchestrator(c, store, app.bm25_index, models, llm12, web_crawler=crawler,
+                            device_lock=app.device_lock)
+        o._hybrid = hy  # phase 7's calibrated searcher
+        return o
+
+    try:
+        # (a) the language phase
+        o_lang = orchestrator(dataclasses.replace(
+            base, language=dataclasses.replace(cfg.language, enabled=True)))
+        o_direct = orchestrator(base)
+        (res_l, walls_l), d_l, _ = drive(lambda: run_all(o_lang, [r for _, r, _ in rendered]))
+        (res_d, walls_d), d_d, _ = drive(lambda: run_all(o_direct, list(english.values())))
+        direct = dict(zip(english.values(), res_d))
+        hits_l = {}
+        for (code, text, eng_q), res in zip(rendered, res_l):
+            check(res.success and not res.degraded, f"phase 12 (a) {code}: {res.degraded}")
+            lang = res.language
+            check(lang.get("source_language") == code and lang["translated"] == (code != "en")
+                  and res.metrics["steps"][0]["name"] == "language",
+                  f"phase 12 (a): {text!r} detected as {lang}")
+            hits_l[code] = hits_l.get(code, 0) + 1
+            ref = direct[eng_q]
+            check(docs_of(res.fused_docs) == docs_of(ref.fused_docs) and res.fused_docs,
+                  f"phase 12 (a) {code}: fused docs differ from the direct run: "
+                  f"{_diff(docs_of(res.fused_docs), docs_of(ref.fused_docs))}")
+            check(docs_of(res.reranked_docs) == docs_of(ref.reranked_docs) and res.reranked_docs,
+                  f"phase 12 (a) {code}: reranked docs differ from the direct run")
+            check(res.effective_queries == ref.effective_queries and res.answer == ref.answer,
+                  f"phase 12 (a) {code}: the run differs from the direct run")
+        check(script.translated == {t: 1 for t in translations},
+              "phase 12 (a): a translation was not made exactly once per rendered question, "
+              "or an English question was translated")
+        check(d_l["int8_scan_topk"] > 0, d_l)
+        numbers["language"] = {
+            "runs": len(res_l), "detected": hits_l, "translation_calls": len(script.translated),
+            "ms_per_run_p50": _pct(walls_l, 0.5) * 1e3, "ms_per_run_p99": _pct(walls_l, 0.99) * 1e3,
+            "direct_ms_per_run_p50": _pct(walls_d, 0.5) * 1e3,
+            "language_step_ms_p50": _pct([r.metrics["steps"][0]["duration_ms"] for r in res_l],
+                                         0.5)}
+        log(f"phase 12 (a) language phase: {json.dumps(numbers['language'])}; launches {d_l}; "
+            f"every run's fused and reranked docs equal the direct English run's; {smi}")
+
+        # (b) web search through an orchestrator built with a crawler
+        cfg_web = dataclasses.replace(
+            base, pipeline=dataclasses.replace(base.pipeline, use_web_search=True),
+            web_search=dataclasses.replace(base.web_search, max_urls=WEB_URLS,
+                                           blocked_domains=("localhost",)))
+        o_web = orchestrator(cfg_web, WebCrawler(rate_limit_delay_s=0.0))
+        (res_w, walls_w), d_w, _ = drive(lambda: run_all(o_web, web_q))
+        for q, res in zip(web_q, res_w):
+            want = ["web:" + u for u in web_urls[q] if "localhost" not in u]
+            got_web = [dd.doc_id for dd, _ in res.web_docs]
+            check(res.success and not res.degraded and got_web == want,
+                  f"phase 12 (b): web docs {got_web} != {want} ({res.degraded})")
+            check(set(got_web) <= {dd.doc_id for dd, _ in res.fused_docs},
+                  "phase 12 (b): fetched pages missing from the fusion")
+            check([dd.content for dd, _ in res.web_docs] ==
+                  [site.phrases[u[len(site.root):]] for u in web_urls[q] if "localhost" not in u],
+                  "phase 12 (b): a fetched page's text")
+        check("/never.html" not in site.hits, "phase 12 (b): a blocked domain was fetched")
+        before = len(site.hits)
+        t = time.perf_counter()
+        again = o_web.run(web_q[0])
+        t_cached = time.perf_counter() - t
+        check(len(site.hits) == before and docs_of(again.web_docs) == docs_of(res_w[0].web_docs),
+              "phase 12 (b): a repeated query fetched again instead of hitting the TTL cache")
+        numbers["web_search"] = {
+            "runs": len(res_w), "ms_per_run_p50": _pct(walls_w, 0.5) * 1e3,
+            "ms_per_run_p99": _pct(walls_w, 0.99) * 1e3, "pages_fetched": before,
+            "cache_hits": 1, "cached_run_ms": t_cached * 1e3,
+            "web_docs_in_fusion": sum(len(r.web_docs) for r in res_w)}
+        log(f"phase 12 (b) web search: {json.dumps(numbers['web_search'])}; blocked domain "
+            f"skipped; launches {d_w}")
+
+        # (d) the reports of one run, and a search report
+        res = res_l[0]
+        t = time.perf_counter()
+        report = QueryReport.from_pipeline_result(res)
+        for ext in ("md", "html", "json", "txt"):
+            report.save(str(d / f"phase12_report.{ext}"))
+        hits = app.search(english[questions[0]], use_cache=False)
+        save_search_report(english[questions[0]], hits, str(d / "phase12_search.md"))
+        t_reports = time.perf_counter() - t
+        import html as html_mod
+
+        saved = {ext: (d / f"phase12_report.{ext}").read_text() for ext in ("md", "html", "json",
+                                                                          "txt")}
+        check(json.loads(saved["json"])["answer"] == res.answer and res.answer in saved["md"]
+              and res.answer in saved["txt"]
+              and html_mod.escape(res.answer).replace("\n", "<br>") in saved["html"],
+              "phase 12 (d): a report lacks the answer")
+        check((d / "phase12_search.md").read_text().startswith("# Search report"))
+        numbers["reports_ms"] = t_reports * 1e3
+
+        # (e) the metrics exporters: with its package an exporter records the
+        # runs; without it (here: the package hidden) it raises naming it
+        have, recorded = {}, {}
+        for pkg, mod in (("prometheus_client", "prometheus_client"),
+                         ("opentelemetry-sdk", "opentelemetry.sdk")):
+            try:
+                have[pkg] = importlib.util.find_spec(mod) is not None
+            except ModuleNotFoundError:
+                have[pkg] = False
+        for flag, pkg, mod in (("prometheus_enabled", "prometheus_client", "prometheus_client"),
+                               ("otel_enabled", "opentelemetry-sdk", "opentelemetry.sdk")):
+            c = dataclasses.replace(base, metrics=dataclasses.replace(
+                base.metrics, **{flag: True, "prometheus_port": 0}))
+            hidden = {m: sys.modules.pop(m) for m in list(sys.modules)
+                      if m == mod or m.startswith(mod + ".")}
+            sys.modules[mod] = None  # the package missing
+            try:
+                orchestrator(c)
+            except ImportError as exc:
+                check(pkg in str(exc) and flag in str(exc), f"phase 12 (e): {exc}")
+            else:
+                raise AssertionError(f"phase 12 (e): {flag} without {pkg} did not raise")
+            finally:
+                del sys.modules[mod]
+                sys.modules.update(hidden)
+                BaseAgent.metrics_sink = None
+            if not have[pkg]:
+                continue
+            try:
+                o = orchestrator(c)
+                exp = o.metrics_exporter
+                if flag == "prometheus_enabled":
+                    from prometheus_client import REGISTRY
+
+                    o.run(web_q[0])
+                    recorded[pkg] = REGISTRY.get_sample_value(
+                        "radiant_tpu_agent_executions_total", {"agent": "planning"})
+                    check(recorded[pkg] == 1.0, f"phase 12 (e): prometheus recorded {recorded}")
+                else:
+                    from radiant_rag_tpu_torch.agents.base_agent import AgentMetrics
+
+                    with exp.trace_agent("probe", AgentMetrics(agent_name="probe")) as span:
+                        recorded[pkg] = bool(span.is_recording())
+                    check(recorded[pkg], "phase 12 (e): the OpenTelemetry span did not record")
+            finally:
+                BaseAgent.metrics_sink = None
+        numbers["metrics_packages"] = have
+        log(f"phase 12 (e) metrics export: packages here {json.dumps(have)}; with its package "
+            f"an exporter records ({json.dumps(recorded)}); with the package hidden, "
+            "enabling it raises ImportError naming the package")
+
+        # (f) a torch.profiler trace of one agentic run, its phases annotated
+        spans = []
+
+        def annotated(event, step, info):
+            if event == "step_start":
+                spans.append(annotate(f"phase.{step}"))
+                spans[-1].__enter__()
+            elif event == "step_end" and spans:
+                spans.pop().__exit__(None, None, None)
+
+        trace_dir = d / "phase12_trace"
+        with profiler_trace(str(trace_dir)):
+            prof_res, d_p, _ = drive(lambda: app.query(questions[-1] + " in the trace",
+                                                       use_cache=False, progress=annotated))
+        check(prof_res.success, "phase 12 (f): the profiled run failed")
+        raw = (trace_dir / "trace.json").read_text()
+        events = json.loads(raw)["traceEvents"]
+        kernels = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                name = re.sub(r"\(.*", "", e["name"].replace("(anonymous namespace)::", ""))
+                kernels[name] = kernels.get(name, 0) + 1
+        names = {e.get("name") for e in events}
+        check(card.type != "cuda" or any("scan_topk_partial" in k for k in kernels),
+              f"phase 12 (f): no scan kernel in the trace: {sorted(kernels)[:20]}")
+        check({"phase.planning", "phase.retrieval", "phase.generation"} <= names,
+              "phase 12 (f): the phase annotations are missing from the trace")
+        top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12])
+        q256 = [" ".join(texts[i].split()[:6]) + " timer"
+                for i in np.random.default_rng(SEED + 12).integers(0, len(texts), 256)]
+        ev = []
+        dispatch = app._dispatch_fused
+
+        def timed_dispatch(*a, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = dispatch(*a, **kw)
+            e1.record()
+            ev.append((e0, e1))
+            return out
+
+        app._dispatch_fused = timed_dispatch
+        try:
+            timer, d_t, _ = drive(lambda: device_timer(
+                lambda: app.search_batch(q256, use_cache=False), iters=5, warmup=1))
+        finally:
+            del app._dispatch_fused
+        torch.cuda.synchronize()
+        dev_ms = sorted(e0.elapsed_time(e1) for e0, e1 in ev[1:])
+        ev_med = dev_ms[len(dev_ms) // 2]
+        check(timer["median_ms"] >= ev_med, f"phase 12 (f): device_timer {timer} < CUDA events "
+              f"{ev_med} ms")
+        numbers["profile"] = {"trace_bytes": len(raw), "events": len(events),
+                              "kernel_events": sum(kernels.values()), "kernels_by_name": top,
+                              "device_timer_ms": timer, "cuda_events_ms_p50": ev_med,
+                              "ratio": timer["median_ms"] / ev_med}
+        log(f"phase 12 (f) profile of one app.query: {json.dumps(numbers['profile'])}; "
+            f"device_timer of search_batch B=256 {timer['median_ms']:.2f} ms against CUDA events "
+            f"{ev_med:.2f} ms around its device dispatch and fetch (ratio "
+            f"{timer['median_ms'] / ev_med:.3f}); launches {d_p}")
+
+        # (g) the template agent's MMR on the card over a run's fused docs
+        agent = agent_template.TemplateDeviceOpAgent(store, models, lam=0.7,
+                                                     device_stages=orch.device_stage)
+        ctx = new_agent_context(res.query)
+        ctx.fused_docs = list(res.fused_docs)
+        t = time.perf_counter()
+        picked = agent.run(ctx, top_k=MMR_K)
+        torch.cuda.synchronize()
+        t_mmr = time.perf_counter() - t
+        vecs = np.asarray(models.embed([dd.content for dd, _ in ctx.fused_docs]), np.float32)
+        qv = np.asarray(models.embed_single(res.query), np.float32)
+        cpu = agent_template._mmr_select(torch.from_numpy(vecs), torch.from_numpy(qv), 0.7,
+                                         MMR_K).tolist()
+        on_card = agent_template._mmr_select(torch.from_numpy(vecs).to(card),
+                                             torch.from_numpy(qv).to(card), 0.7, MMR_K)
+        check(on_card.device.type == card.type and on_card.cpu().tolist() == cpu,
+              "phase 12 (g): MMR picks on the card differ from the CPU's")
+        check(picked.status.value == "success" and [dd.doc_id for dd, _ in picked.data] ==
+              [ctx.fused_docs[i][0].doc_id for i in cpu], "phase 12 (g): the agent's picks")
+        numbers["mmr_ms"] = t_mmr * 1e3
+        log(f"phase 12 (g) TemplateDeviceOpAgent: {MMR_K} MMR picks of {len(ctx.fused_docs)} "
+            f"fused docs in {t_mmr * 1e3:.2f} ms (embed included), equal to the CPU's")
+
+        # (c) the crawled ingests, the app's calls then the routes
+        app_cfg = app.config
+        app.config = dataclasses.replace(app_cfg, web_crawler=dataclasses.replace(
+            app_cfg.web_crawler, max_pages=128, rate_limit_delay_s=0.0))
+        api0, raw0 = github_crawler.GitHubCrawler.API, github_crawler.GitHubCrawler.RAW
+        github_crawler.GitHubCrawler.API = github_crawler.GitHubCrawler.RAW = site.root
+        ids0 = set(store.list_doc_ids())
+        try:
+            t = time.perf_counter()
+            st_urls = app.ingest_urls([site.root + "/"])
+            st_gh = app.ingest_github("https://github.com/radiant/port")
+            torch.cuda.synchronize()
+            t_ing = time.perf_counter() - t
+            n_site = len(site.site_pages("/"))
+            check(st_urls["pages_crawled"] == n_site and st_urls["chunks_ingested"] == n_site,
+                  f"phase 12 (c): ingest_urls {st_urls}")
+            check(st_gh["files_fetched"] == len(GH_REPOS["port"]) and st_gh["chunks_ingested"],
+                  f"phase 12 (c): ingest_github {st_gh}")
+
+            # the routes beside /search clients (dense: a hybrid search
+            # after each ingest would rebuild the BM25 tables, H3); each
+            # served batch is held against search_batch under the lock
+            server = make_server(app, "127.0.0.1", 0)
+            port = server.server_address[1]
+            serve_thread = threading.Thread(target=server.serve_forever, daemon=True)
+            serve_thread.start()
+            coal = server.api._coalescer
+            served_batches = []
+            dispatch0 = coal.run_batch_async
+
+            def held(key, items):
+                with app.device_lock:
+                    served = dispatch0(key, items)()
+                    ref = app.search_batch(list(items), mode=key[0], top_k=key[1],
+                                           use_cache=False)
+                served_batches.append((list(items), served, ref, time.perf_counter()))
+                return lambda: served
+
+            coal.run_batch_async = held
+            pool = list(dict.fromkeys(" ".join(texts[i].split()[:6]) + " host" for i in
+                                      np.random.default_rng(SEED + 13).integers(0, len(texts),
+                                                                                4096)))
+            answers, errors, stop = {}, [], threading.Event()
+
+            def client(c):
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+                try:
+                    i = c
+                    while not stop.is_set() and i < len(pool):
+                        conn.request("POST", "/search", json.dumps(
+                            {"query": pool[i], "mode": "dense", "top_k": TOP_K}),
+                            {"Content-Type": "application/json"})
+                        resp = conn.getresponse()
+                        answers[pool[i]] = (resp.status, json.loads(resp.read()),
+                                            time.perf_counter())
+                        i += HOST_CLIENTS
+                except Exception as exc:  # reported below
+                    errors.append(exc)
+                finally:
+                    conn.close()
+
+            def post(path, body):
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+                try:
+                    conn.request("POST", path, json.dumps(body),
+                                 {"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    return resp.status, json.loads(resp.read())
+                finally:
+                    conn.close()
+
+            clients = [threading.Thread(target=client, args=(c,), daemon=True)
+                       for c in range(HOST_CLIENTS)]
+            for th in clients:
+                th.start()
+            time.sleep(0.5)
+            t = time.perf_counter()
+            routes = {}
+            posters = [threading.Thread(target=lambda: routes.setdefault(
+                           "urls", post("/ingest/urls", {"urls": [site.root + "/b/"]}))),
+                       threading.Thread(target=lambda: routes.setdefault(
+                           "github", post("/ingest/github",
+                                          {"url": "https://github.com/radiant/docs"})))]
+            for th in posters:
+                th.start()
+            for th in posters:
+                th.join(timeout=600)
+            t_routes = time.perf_counter() - t
+            time.sleep(0.5)
+            stop.set()
+            for th in clients:
+                th.join(timeout=600)
+            server.shutdown()
+            server.server_close()
+            server.api.close()
+            serve_thread.join(timeout=30)
+            check(not errors, f"phase 12 (c): /search clients failed: {errors[:3]}")
+            n_b = len(site.site_pages("/b/"))
+            check(routes["urls"][0] == 200 and routes["urls"][1]["pages_crawled"] == n_b,
+                  f"phase 12 (c): /ingest/urls {routes['urls']}")
+            check(routes["github"][0] == 200 and
+                  routes["github"][1]["files_fetched"] == len(GH_REPOS["docs"]),
+                  f"phase 12 (c): /ingest/github {routes['github']}")
+            bad = 0
+            by_query = {}
+            for items, served, ref, _ in served_batches:
+                for q_, a, b in zip(items, served, ref):
+                    bad += docs_of(a) != docs_of(b)
+                    by_query[q_] = docs_of(a)
+            for q_, (status, body, _) in answers.items():
+                got = [(h["doc_id"], h["score"]) for h in body["hits"]]
+                bad += status != 200 or got != by_query.get(q_) or not got
+            check(bad == 0 and answers, f"phase 12 (c): {bad} /search answers differ from "
+                  "search_batch of their batch")
+            during = sum(t <= a[2] <= t + t_routes for a in answers.values())
+
+            # each page's phrase at rank 1 of one hybrid search_batch (the
+            # first search after the ingests rebuilds the BM25 tables)
+            pages = {**site.site_pages("/"), **site.site_pages("/b/")}
+            phrases = list(pages.values())
+            t = time.perf_counter()
+            found, d_s, t_first = drive(lambda: app.search_batch(phrases, use_cache=False))
+            check(d_s["int8_scan_topk"] > 0, d_s)
+            miss = [p for p, hits_ in zip(phrases, found) if not hits_ or hits_[0][0].content != p]
+            check(not miss, f"phase 12 (c): {len(miss)} of {len(phrases)} pages not at rank 1: "
+                  f"{miss[:3]}")
+            _, _, t_again = drive(lambda: app.search_batch(phrases, use_cache=False))
+            new_ids = [i for i in store.list_doc_ids() if i not in ids0]
+            sources = {store.get_doc(i).meta.get("source") for i in new_ids}
+            want = {site.root + p for p in pages} | {
+                f"{site.root}/radiant/{name}/main/{p}" for name, paths in GH_REPOS.items()
+                for p in paths}
+            check(sources == want, f"phase 12 (c): the ingested sources differ: "
+                  f"{sorted(sources ^ want)[:4]}")
+        finally:
+            app.config = app_cfg
+            github_crawler.GitHubCrawler.API, github_crawler.GitHubCrawler.RAW = api0, raw0
+        n_new = len(new_ids)
+        chunks = st_urls["chunks_ingested"] + st_gh["chunks_ingested"]
+        numbers["ingest"] = {
+            "pages_crawled": st_urls["pages_crawled"] + n_b, "files_fetched":
+            st_gh["files_fetched"] + len(GH_REPOS["docs"]), "docs_added": n_new,
+            "app_calls_s": t_ing, "chunks_per_s": chunks / t_ing,
+            "routes_s": t_routes, "search_answers": len(answers),
+            "search_answers_during_routes": during, "served_batches": len(served_batches),
+            "bm25_rebuild_and_first_search_s": t_first, "hybrid_search_s_after": t_again,
+            "pages_at_rank_1": len(phrases) - len(miss)}
+        log(f"phase 12 (c) crawled ingest: {json.dumps(numbers['ingest'])}; {smi}")
+
+        # (d) the CLI in subprocesses over a small data dir, configured by
+        # RADIANT_* environment overrides, as the README configures a server
+        cli = d / "phase12_cli"
+        (cli / "docs").mkdir(parents=True, exist_ok=True)
+        for i in range(3):
+            (cli / "docs" / f"n{i}.txt").write_text(" ".join(texts[i].split()) + ". " +
+                                                   web_phrase(f"cli{i}"))
+        env = dict(os.environ, RADIANT_INDEX_DATA_DIR=str(cli / "index"),
+                   RADIANT_BM25_INDEX_PATH=str(cli / "bm25.json.gz"),
+                   RADIANT_LLM_BACKEND="mock", RADIANT_LOGGING_COLOR="false",
+                   RADIANT_CONVERSATION_DATA_DIR=str(cli / "conv"),
+                   RADIANT_STRATEGY_MEMORY_PATH=str(cli / "sm.json.gz"),
+                   RADIANT_EMBEDDING_CHECKPOINT_DIR=str(cli / "ckpt"))
+        base_cmd = [sys.executable, "-m", "radiant_rag_tpu_torch"]
+        t = time.perf_counter()
+        out = subprocess.run(base_cmd + ["ingest", str(cli / "docs")], cwd=repo, env=env,
+                             capture_output=True, text=True, timeout=300)
+        check(out.returncode == 0 and json.loads(out.stdout)["chunks_ingested"] > 0,
+              f"phase 12 (d): ingest exited {out.returncode}: {out.stderr[-2000:]}")
+        cmds = {"query": (base_cmd + ["query", web_phrase("cli1"), "--report",
+                                      str(cli / "q.json")], None),
+                "search": (base_cmd + ["search", web_phrase("cli2"), "--save",
+                                       str(cli / "s.md")], None),
+                "tui": (base_cmd + ["tui"], f"{web_phrase('cli0')}\n\n")}
+        procs = {k: subprocess.Popen(c, cwd=repo, env=env, stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for k, (c, _) in cmds.items()}
+        outs = {}
+        try:
+            for k, p in procs.items():
+                outs[k] = p.communicate(input=cmds[k][1], timeout=300)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+        t_cli = time.perf_counter() - t
+        for k, p in procs.items():
+            check(p.returncode == 0, f"phase 12 (d): {k} exited {p.returncode}: "
+                  f"{outs[k][1][-2000:]}")
+        check(json.loads((cli / "q.json").read_text())["query"] == web_phrase("cli1")
+              and web_phrase("cli2") in (cli / "s.md").read_text()
+              and "query>" in outs["tui"][0], "phase 12 (d): the CLI's outputs")
+        numbers["cli_s"] = t_cli
+        numbers["ui_packages"] = {m: importlib.util.find_spec(m) is not None
+                                  for m in ("rich", "textual")}
+        log(f"phase 12 (d) reports: .md .html .json .txt and a search report in "
+            f"{t_reports * 1e3:.2f} ms; CLI ingest, then query --report, search --save and tui "
+            f"(two lines on stdin) in parallel: all exit 0 in {t_cli:.1f} s; UI packages here "
+            f"{json.dumps(numbers['ui_packages'])}")
+
+        # (d) the Textual frontend, headless, over this app: one query
+        # submitted through its input, every tab read back, ctrl+s's report
+        if numbers["ui_packages"]["textual"]:
+            import textual
+
+            q_tui = questions[0] + " in the TUI"
+            (session, tabs, timeline, saved_tui), d_t, t_tui = drive(
+                lambda: drive_textual_tui(app, q_tui, d / "phase12_tui"))
+            check(session.error is None and session.result is not None
+                  and session.result.success, f"phase 12 (d): the Textual run failed: "
+                  f"{session.error}")
+            check(f"Q: {q_tui}" in tabs["overview"] and all(
+                tabs[n].strip() and tabs[n] != "(no result yet)" for n in tabs),
+                  f"phase 12 (d): the Textual tabs: {json.dumps(tabs)[:2000]}")
+            check(timeline.strip() and len(saved_tui) == 1
+                  and saved_tui[0].read_text() == session.report_markdown(),
+                  f"phase 12 (d): the Textual timeline or ctrl+s report: {timeline!r} "
+                  f"{saved_tui}")
+            numbers["textual_tui"] = {"version": getattr(textual, "__version__", "?"),
+                                      "query_s": t_tui, "tabs": len(tabs)}
+            log(f"phase 12 (d) Textual TUI (textual {numbers['textual_tui']['version']}, "
+                f"headless pilot): one query in {t_tui:.2f} s, {len(tabs)} tabs filled, "
+                f"ctrl+s wrote {saved_tui[0].name}; launches {d_t}")
+        else:
+            log("phase 12 (d) Textual TUI: textual is not installed here; not driven")
+    finally:
+        site.close()
+    numbers["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30 \
+        if card.type == "cuda" else 0.0
+    log("phase 12 summary: " + json.dumps({"device": smi, **numbers}, default=str))
+    return launched
+
 
 if __name__ == "__main__":
     try:

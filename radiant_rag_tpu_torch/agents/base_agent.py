@@ -15,7 +15,8 @@ searches share), which raises any failure there as a `DeviceStageError`;
 `BaseAgent.run` re-raises it instead of calling `_on_error`, so it reaches
 the caller of `RAGOrchestrator.run`. Every other failure (an `LLMError`,
 JSON that does not parse) degrades exactly as in the JAX package.
-`metrics_sink` stays None: the metrics exporter is not ported yet.
+`metrics_sink` is the exporter the orchestrator builds under `metrics.*`
+(`utils/metrics_export.py`).
 """
 
 from __future__ import annotations

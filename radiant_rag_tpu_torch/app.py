@@ -4,7 +4,9 @@ The port's counterpart of `radiant_rag_tpu/app.py`, under the same name so
 each method has its counterpart: ingestion (files or chunks -> hierarchical
 parent / leaf chunks -> embed on the device -> upsert -> BM25 sync), the
 query cache, `search` / `search_batch` / `search_batch_async` in the hybrid,
-dense and bm25 modes, `warmup`, the admin calls, and the agentic query path:
+dense and bm25 modes, `warmup`, the admin calls, the crawled ingests
+(`ingest_urls`: a breadth-first web crawl; `ingest_github`: a repository's
+files with code-aware chunking), and the agentic query path:
 `query` (cached), `query_raw`, `query_stream` (progress, token and result
 events), `simple_query` and conversations, and `train` (fine-tune the
 embedder on the corpus, then hot-swap it). Hybrid search is the fused
@@ -18,11 +20,19 @@ the calibration over the source engine carried to it first.
 Card work is serialized by one lock, `device_lock`, which the server's
 search batches, /health's embed and every device stage of a pipeline run
 take; a run holds it only for its device stages, never across an LLM call,
-and `train` for each mining search, each step and the swap.
+`train` for each mining search, each step and the swap, and every ingest
+(`ingest_documents`, `ingest_chunks`, the crawled ingests) only for its
+embed, upsert and BM25 sync (`_ingest_chunks`): reading and parsing files
+and the crawl itself (slow network I/O) run outside it, so they never
+stall the server's searches.
+As in the JAX package, the app's orchestrator has no web crawler:
+`pipeline.use_web_search` through the app warns "web search unavailable:
+no crawler configured" (give `RAGOrchestrator` a `WebCrawler` to fetch).
 
-Not here yet, each raising `NotImplementedError` with its ROADMAP item:
-the crawlers (`ingest_urls`, `ingest_github`) and the reports and TUI,
-queue A item 11 (rest).
+The CLI (`main`) prints answers and search hits through `ui/display.py`
+(stats and health as JSON), saves reports
+(`query --report`, `search --save`, ui/reports.py) and runs the terminal
+UI (`tui`, ui/tui.py).
 
 `RadiantTPU(device=None)` runs on CUDA and raises without a card; tests
 pass device="cpu".
@@ -58,11 +68,6 @@ from radiant_rag_tpu_torch.utils.logging import setup_logging
 from radiant_rag_tpu_torch.utils.metrics import MetricsCollector
 
 logger = logging.getLogger(__name__)
-
-CRAWLERS_NOT_PORTED = ("the web and GitHub crawlers are not ported yet: "
-                       "ROADMAP queue A item 11 (rest)")
-UI_NOT_PORTED = ("the reports and the terminal UI (ui/) are not ported yet: "
-                 "ROADMAP queue A item 11 (rest)")
 
 Hits = List[Tuple[Any, float]]
 
@@ -111,13 +116,16 @@ class RadiantTPU:
     # ingestion
     # ------------------------------------------------------------------
     def ingest_documents(self, paths: Sequence[str], recursive: bool = True) -> Dict[str, Any]:
-        """Parse -> hierarchical chunks -> embed (device) -> upsert -> BM25 sync."""
+        """Parse -> hierarchical chunks -> embed (device) -> upsert -> BM25
+        sync; the device lock is held for the ingest only (module doc)."""
         t0 = time.time()
         chunks = self.processor.process_paths(paths, recursive=recursive)
-        return self._ingest_chunks(chunks, t0)
+        with self.device_lock:
+            return self._ingest_chunks(chunks, t0)
 
     def ingest_chunks(self, chunks: Sequence[IngestedChunk]) -> Dict[str, Any]:
-        return self._ingest_chunks(list(chunks), time.time())
+        with self.device_lock:
+            return self._ingest_chunks(list(chunks), time.time())
 
     def _ingest_chunks(self, chunks: List[IngestedChunk], t0: float) -> Dict[str, Any]:
         cfg = self.config.ingestion
@@ -166,10 +174,64 @@ class RadiantTPU:
                 logger.warning("%s failed: %s", what, exc)
 
     def ingest_urls(self, urls: Sequence[str]) -> Dict[str, Any]:
-        raise NotImplementedError(CRAWLERS_NOT_PORTED)
+        """Crawl each URL breadth-first (the `web_crawler` section), split
+        each page into chunks and ingest them; the device lock is held for
+        the ingest only (module doc)."""
+        from radiant_rag_tpu_torch.ingestion.web_crawler import WebCrawler
+
+        wc = self.config.web_crawler
+        crawler = WebCrawler(
+            max_depth=wc.max_depth, max_pages=wc.max_pages,
+            same_domain_only=wc.same_domain_only,
+            rate_limit_delay_s=wc.rate_limit_delay_s, timeout_s=wc.timeout_s,
+            include_patterns=wc.include_patterns, exclude_patterns=wc.exclude_patterns,
+        )
+        chunks: List[IngestedChunk] = []
+        pages = 0
+        for url in urls:
+            for result in crawler.crawl(url):
+                pages += 1
+                for j, piece in enumerate(self.processor.splitter.split(result.text)):
+                    chunks.append(IngestedChunk(
+                        content=piece,
+                        meta={"source": result.url, "title": result.title,
+                              "chunk_index": j}))
+        with self.device_lock:
+            stats = self._ingest_chunks(chunks, time.time())
+        stats["pages_crawled"] = pages
+        return stats
 
     def ingest_github(self, url: str) -> Dict[str, Any]:
-        raise NotImplementedError(CRAWLERS_NOT_PORTED)
+        """Crawl a GitHub repository (the `github` section) and ingest its
+        files: code through the code chunker, markdown by section, other
+        text by the splitter; the device lock is held for the ingest only."""
+        from radiant_rag_tpu_torch.ingestion.code_chunker import CodeChunker, detect_language
+        from radiant_rag_tpu_torch.ingestion.github_crawler import GitHubCrawler
+
+        gh = self.config.github
+        crawler = GitHubCrawler(token=gh.token, max_files=gh.max_files,
+                                include_extensions=gh.include_extensions)
+        files = crawler.crawl(url)
+        code_chunker = CodeChunker()
+        chunks: List[IngestedChunk] = []
+        for f in files:
+            lang = detect_language(f.path)
+            if lang:
+                for c in code_chunker.chunk_text(f.content, lang, source=f.path):
+                    chunks.append(IngestedChunk(content=c.to_indexable_text(),
+                                                meta={"source": f.url, **c.meta()}))
+            elif f.path.lower().endswith((".md", ".markdown")):
+                for j, piece in enumerate(self._chunk_markdown(f.content)):
+                    chunks.append(IngestedChunk(content=piece,
+                                                meta={"source": f.url, "chunk_index": j}))
+            else:
+                for j, piece in enumerate(self.processor.splitter.split(f.content)):
+                    chunks.append(IngestedChunk(content=piece,
+                                                meta={"source": f.url, "chunk_index": j}))
+        with self.device_lock:
+            stats = self._ingest_chunks(chunks, time.time())
+        stats["files_fetched"] = len(files)
+        return stats
 
     @staticmethod
     def _chunk_markdown(text: str, max_chars: int = 3000) -> List[str]:
@@ -650,26 +712,8 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-# subcommands whose layers are not ported yet, and the ROADMAP item of each
-_NOT_PORTED_COMMANDS = {
-    "ingest-urls": CRAWLERS_NOT_PORTED, "ingest-github": CRAWLERS_NOT_PORTED,
-    "tui": UI_NOT_PORTED,
-}
-
-
 def _print_json(obj: Any) -> None:
     print(json.dumps(obj, indent=2, default=str))
-
-
-def _print_answer(result: PipelineResult) -> None:
-    """The answer, then the run's summary as JSON (the JAX CLI's rich
-    display lives in ui/, not ported yet)."""
-    print(result.answer)
-    summary = result.to_dict()
-    summary.pop("answer")
-    summary["metrics"] = {s["name"]: round(s["duration_ms"], 1)
-                          for s in summary["metrics"].get("steps", [])}
-    _print_json(summary)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -677,23 +721,34 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if not args.command:
         build_parser().print_help()
         return 1
-    if args.command in _NOT_PORTED_COMMANDS:
-        raise NotImplementedError(_NOT_PORTED_COMMANDS[args.command])
-    if (args.command == "search" and args.save) or (args.command == "query" and args.report):
-        raise NotImplementedError(UI_NOT_PORTED)
     config = load_config(args.config) if args.config else config_from_dict({})
     setup_logging("DEBUG" if args.verbose else config.logging.level,
                   file=config.logging.file, color=config.logging.color)
     app = create_app(config)
+    from radiant_rag_tpu_torch.ui.display import display_answer, display_search_results
 
     if args.command == "ingest":
         _print_json(app.ingest_documents(args.paths, recursive=not args.no_recursive))
+    elif args.command == "ingest-urls":
+        _print_json(app.ingest_urls(args.urls))
+    elif args.command == "ingest-github":
+        _print_json(app.ingest_github(args.url))
     elif args.command == "search":
         hits = app.search(args.query, mode=args.mode, top_k=args.top_k)
-        _print_json([{"doc_id": d.doc_id, "score": s, "source": d.source,
-                      "content": d.content[:300]} for d, s in hits])
+        display_search_results(args.query, hits)
+        if args.save:
+            from radiant_rag_tpu_torch.ui.reports import save_search_report
+
+            save_search_report(args.query, hits, args.save)
+            print(f"search report saved to {args.save}")
     elif args.command == "query":
-        _print_answer(app.query(args.question, conversation_id=args.conversation))
+        result = app.query(args.question, conversation_id=args.conversation)
+        display_answer(result)
+        if args.report:
+            from radiant_rag_tpu_torch.ui.reports import QueryReport
+
+            QueryReport.from_pipeline_result(result).save(args.report)
+            print(f"report saved to {args.report}")
     elif args.command == "simple-query":
         print(app.simple_query(args.question))
     elif args.command == "interactive":
@@ -706,7 +761,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 break
             if not question:
                 break
-            _print_answer(app.query(question, conversation_id=cid))
+            display_answer(app.query(question, conversation_id=cid))
     elif args.command == "serve":
         from radiant_rag_tpu_torch.server import serve
 
@@ -742,6 +797,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print("index cleared")
     elif args.command == "rebuild-bm25":
         print(f"BM25 index rebuilt: {app.rebuild_bm25_index()} docs")
+    elif args.command == "tui":
+        from radiant_rag_tpu_torch.ui.tui import run_tui
+
+        run_tui(app)
     return 0
 
 

@@ -353,7 +353,7 @@ class CitationConfig:
 
 @dataclass(frozen=True)
 class LanguageConfig:
-    """Language detection + translation (ROADMAP A11 rest)."""
+    """Language detection + translation (orchestrator phase 0)."""
 
     enabled: bool = False
     canonical_language: str = "en"
@@ -480,11 +480,9 @@ _SECTIONS = {f.name: f.default_factory for f in fields(AppConfig)}
 ENV_PREFIX = "RADIANT"
 _NEITHER = "read by neither package"
 _REST = "ROADMAP queue A item 11 (rest)"
-_EXPORTER = f"the metrics exporter (utils/metrics_export.py) is not ported yet, {_REST}"
 _REMOTE = f"only the non-jax backends (llm/model_backends.py) read it, {_REST}"
 _LOCAL_LLM = ("only llm.backend 'local' reads it, which waits for causal-LM weights in the "
               f"repository, {_REST}")
-_WEB = f"web search and the crawlers are not ported yet, {_REST}"
 # Fields parsed for parity that the port has no behaviour for: a value
 # other than the default raises, with the reason. A section named by a
 # string has no behaviour in any field.
@@ -496,21 +494,14 @@ _NOT_PORTED = {
     "embedding": {"backend": _REMOTE, "model_name": _REMOTE},
     "cross_encoder": {"backend": _REMOTE, "model_name": _NEITHER},
     "llm": {"model_path": _LOCAL_LLM, "device": _LOCAL_LLM},
-    "pipeline": {"use_web_search": _WEB},
     "agentic": {"simple_query_max_words": _NEITHER + " (the simple-query rule is fixed)"},
     "query": {"max_rewrites": _NEITHER},
-    "language": {"enabled": "language detection and translation (agents/language.py) are "
-                            f"not ported yet, {_REST}"},
     "ingestion": {"embed_batch_size": _NEITHER, "use_intelligent_chunking": _NEITHER,
                   "translate_at_ingestion": _NEITHER},
-    "web_search": _WEB,
-    "web_crawler": _WEB,
-    "github": _WEB,
-    "metrics": {"prometheus_enabled": _EXPORTER, "prometheus_port": _EXPORTER,
-                "otel_enabled": _EXPORTER, "otel_endpoint": _EXPORTER},
+    "web_search": {"enabled": _NEITHER + " (pipeline.use_web_search turns web search on)"},
     "mesh": {"shard_corpus": _NEITHER, "dtype_compute": _NEITHER},
-    "report": f"the reports (ui/) are not ported yet, {_REST}; the JAX package reads "
-              "no field of it either",
+    "report": _NEITHER + " (query --report and search --save take the format from the "
+              "file's suffix)",
     "server": {"host": _NEITHER + " (the serve command's --host)",
                "port": _NEITHER + " (the serve command's --port)"},
 }

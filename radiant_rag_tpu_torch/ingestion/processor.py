@@ -7,8 +7,12 @@ their behaviour unchanged: plain text, markdown, html, csv, json / jsonl
 read without optional libraries; pdf takes pypdf (or PyPDF2) when
 importable and `unstructured` where the strategy asks for it, and without
 them logs and skips the file as the JAX package does.
-`IntelligentDocumentProcessor` and `TranslatingDocumentProcessor` need the
-LLM agents and come with them (ROADMAP queue A item 11).
+`IntelligentDocumentProcessor` (sections through the chunking agent,
+`agents/chunking.py`) and `TranslatingDocumentProcessor` (each chunk's
+language detected and translated to the canonical language, the original
+kept in its meta) are library classes, as in the JAX package: no app path
+builds them, and `ingestion.use_intelligent_chunking` /
+`translate_at_ingestion` are read by neither package.
 """
 
 from __future__ import annotations
@@ -277,4 +281,57 @@ class DocumentProcessor:
                 out.extend(self.process_file(str(p)))
             else:
                 logger.warning("path not found: %s", raw)
+        return out
+
+
+class IntelligentDocumentProcessor(DocumentProcessor):
+    """Routes prose/markdown through the IntelligentChunkingAgent
+    (reference `processor.py:635-797`)."""
+
+    def __init__(self, chunking_agent, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self.chunking_agent = chunking_agent
+
+    def _split_section(self, text: str, extra: Dict[str, Any]) -> List[str]:
+        try:
+            chunks = self.chunking_agent.chunk(text)
+            if chunks:
+                return [c.content for c in chunks]
+        except Exception as exc:
+            logger.warning("intelligent chunking failed, falling back: %s", exc)
+        return super()._split_section(text, extra)
+
+
+class TranslatingDocumentProcessor(DocumentProcessor):
+    """Detect language per chunk and translate to the canonical language at
+    ingestion, preserving the original in meta (reference `processor.py:799-1077`)."""
+
+    def __init__(self, detector, translator, canonical_language: str = "en",
+                 **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self.detector = detector
+        self.translator = translator
+        self.canonical_language = canonical_language
+
+    def process_file(self, path: str) -> List[IngestedChunk]:
+        chunks = super().process_file(path)
+        out = []
+        for chunk in chunks:
+            try:
+                code, conf = self.detector.detect(chunk.content)
+            except Exception:
+                code, conf = self.canonical_language, 0.0
+            meta = dict(chunk.meta)
+            meta["language_code"] = code
+            content = chunk.content
+            if code != self.canonical_language and conf >= 0.5:
+                try:
+                    translated = self.translator.translate(content, source=code)
+                    meta["original_content"] = content
+                    meta["original_language"] = code
+                    meta["language_code"] = self.canonical_language
+                    content = translated
+                except Exception as exc:
+                    logger.warning("translation failed: %s", exc)
+            out.append(IngestedChunk(content=content, meta=meta))
         return out

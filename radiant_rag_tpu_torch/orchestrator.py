@@ -1,13 +1,18 @@
 """RAGOrchestrator: the multi-agent query pipeline control loop.
 
-The port's counterpart of `radiant_rag_tpu/orchestrator.py`: the nine
-phases of `run` with the critic-retry loop, the simple-query fast path,
+The port's counterpart of `radiant_rag_tpu/orchestrator.py`: the
+language phase (detection and translation to the canonical language when
+`language.enabled`), the nine phases of `run` with the critic-retry loop,
+web search (fused into the retrieval when the plan asks for it, served
+alone when the retrieval found nothing), the simple-query fast path,
 targeted retry ("context" re-retrieves with a mutated plan, "answer" only
 regenerates), the low-confidence answer, strategy-memory outcomes, fact
-verification and citation in a 2-worker pool, and per-phase `RunMetrics`
-with degradation marks. Hybrid retrieval is the fused `HybridSearcher`
-over the store's engine and the BM25 index: all effective queries embedded
-on the card (`embed_queries_device`) and searched in one `search_rows`.
+verification and citation in a 2-worker pool, per-phase `RunMetrics`
+with degradation marks, and the Prometheus / OpenTelemetry exporter
+(`metrics.*`, handed to `BaseAgent.metrics_sink`). Hybrid retrieval is
+the fused `HybridSearcher` over the store's engine and the BM25 index: all
+effective queries embedded on the card (`embed_queries_device`) and
+searched in one `search_rows`.
 Over a sharded pod store it is the store's `search_hybrid`; the searcher is
 then built over the store's single-device source engine only to calibrate
 the fusion, whose mode and weights `set_fusion` carries to the pod (and the
@@ -21,10 +26,11 @@ hide behind a degraded answer:
     raised out of `run` as a `DeviceStageError`;
   * the fusion and rerank calibrations raise where the JAX methods log and
     serve equal weights or leave the stage unchanged.
-LLM failures (`LLMError`, JSON that does not parse) degrade as there.
-
-Not here yet (ROADMAP queue A item 11, rest): the language phase, web
-search and the metrics exporter (their config fields raise).
+LLM failures (`LLMError`, JSON that does not parse) degrade as there: a
+translation that fails marks the run degraded with "language" and goes on
+with the query as asked. As in the JAX package, web search needs a crawler
+given to the constructor; without one it answers with the warning "web
+search unavailable: no crawler configured" and fetches nothing.
 """
 
 from __future__ import annotations
@@ -39,12 +45,13 @@ import numpy as np
 
 from radiant_rag_tpu_torch.agents.automerge import HierarchicalAutoMergingAgent
 from radiant_rag_tpu_torch.agents.base import AgentContext, DocScore, new_agent_context
-from radiant_rag_tpu_torch.agents.base_agent import DeviceStages
+from radiant_rag_tpu_torch.agents.base_agent import BaseAgent, DeviceStages
 from radiant_rag_tpu_torch.agents.citation import CitationTrackingAgent
 from radiant_rag_tpu_torch.agents.context_eval import ContextEvaluationAgent
 from radiant_rag_tpu_torch.agents.critic import CriticAgent
 from radiant_rag_tpu_torch.agents.fact_verification import FactVerificationAgent
 from radiant_rag_tpu_torch.agents.fusion import RRFAgent
+from radiant_rag_tpu_torch.agents.language import LanguageDetectionAgent, TranslationAgent
 from radiant_rag_tpu_torch.agents.multihop import MultiHopReasoningAgent
 from radiant_rag_tpu_torch.agents.planning import PLAN_DEFAULTS, PlanningAgent
 from radiant_rag_tpu_torch.agents.query_processing import (
@@ -58,6 +65,7 @@ from radiant_rag_tpu_torch.agents.strategy_memory import RetrievalStrategyMemory
 from radiant_rag_tpu_torch.agents.summarization import SummarizationAgent
 from radiant_rag_tpu_torch.agents.synthesis import AnswerSynthesisAgent
 from radiant_rag_tpu_torch.agents.tools import ToolSelector, create_default_tool_registry
+from radiant_rag_tpu_torch.agents.web_search import WebSearchAgent
 from radiant_rag_tpu_torch.config import AppConfig
 from radiant_rag_tpu_torch.index.hybrid import (
     HybridSearcher, embed_queries_device, resolve_fused_depth,
@@ -124,8 +132,8 @@ class PipelineResult:
 
 class RAGOrchestrator:
     def __init__(self, config: AppConfig, store, bm25_index, local_models, llm,
-                 conversation_manager=None, metrics_collector=None,
-                 device_lock=None) -> None:
+                 conversation_manager=None, web_crawler=None, metrics_collector=None,
+                 metrics_exporter=None, device_lock=None) -> None:
         self.config = config
         self.store = store
         self.bm25_index = bm25_index
@@ -133,10 +141,24 @@ class RAGOrchestrator:
         self.llm = llm
         self.conversation_manager = conversation_manager
         self.metrics_collector = metrics_collector
+        cfg = config
+        if metrics_exporter is None and (cfg.metrics.prometheus_enabled
+                                         or cfg.metrics.otel_enabled):
+            from radiant_rag_tpu_torch.utils.metrics_export import UnifiedMetrics
+
+            # raises ImportError naming the package an enabled exporter lacks
+            metrics_exporter = UnifiedMetrics.create(
+                prometheus_enabled=cfg.metrics.prometheus_enabled,
+                prometheus_port=cfg.metrics.prometheus_port,
+                otel_enabled=cfg.metrics.otel_enabled,
+                otel_endpoint=cfg.metrics.otel_endpoint,
+            )
+        self.metrics_exporter = metrics_exporter
+        if metrics_exporter is not None:
+            BaseAgent.metrics_sink = metrics_exporter
         # every device call of a run: under device_lock (the app's, which
         # the server's searches share), failures raised (module doc)
         self.device_stage = DeviceStages(device_lock)
-        cfg = config
 
         # the fused device retrieval path, over the store's engine; a store
         # without one (the numpy backend) retrieves leg by leg. Over a pod
@@ -172,6 +194,12 @@ class RAGOrchestrator:
             search_scope=cfg.retrieval.search_scope, device_stages=stages)
         self.bm25 = BM25RetrievalAgent(bm25_index, top_k=cfg.retrieval.bm25_top_k,
                                        device_stages=stages)
+        self.web_search = WebSearchAgent(
+            llm, crawler=web_crawler, max_urls=cfg.web_search.max_urls,
+            cache_ttl_s=cfg.web_search.cache_ttl_s,
+            blocked_domains=cfg.web_search.blocked_domains,
+            trigger_keywords=cfg.web_search.trigger_keywords,
+            enabled=p.use_web_search)
         self.fusion = RRFAgent(rrf_k=cfg.retrieval.rrf_k, top_k=cfg.retrieval.fused_top_k,
                                enabled=p.use_rrf)
         self.automerge = HierarchicalAutoMergingAgent(
@@ -225,6 +253,13 @@ class RAGOrchestrator:
             min_confidence=cfg.citation.min_confidence,
             include_bibliography=cfg.citation.include_bibliography) \
             if p.use_citation and cfg.citation.enabled else None
+        self.language_detector = LanguageDetectionAgent(
+            llm=llm, min_confidence=cfg.language.min_confidence) \
+            if cfg.language.enabled else None
+        self.translator = TranslationAgent(
+            llm, canonical_language=cfg.language.canonical_language,
+            max_chars_per_llm_call=cfg.language.max_chars_per_llm_call) \
+            if cfg.language.enabled else None
         self.tool_registry = create_default_tool_registry(cfg.tools.allow_code_execution) \
             if p.use_tools and cfg.tools.enabled else None
         self.tool_selector = ToolSelector(llm, self.tool_registry) if self.tool_registry else None
@@ -269,6 +304,21 @@ class RAGOrchestrator:
         result = PipelineResult(query=query, answer="", run_id=ctx.run_id,
                                 conversation_id=conversation_id)
         cfg = self.config
+
+        # Phase 0: language (host and LLM work; a failed translation runs on
+        # with the query as asked)
+        if self.language_detector is not None and self.translator is not None:
+            with metrics.track_step("language"):
+                try:
+                    info = self.translator.translate_with_detection(query, self.language_detector)
+                    ctx.language = {"source_language": info["source_language"],
+                                    "translated": info["translated"],
+                                    "confidence": info["confidence"]}
+                    if info["translated"]:
+                        ctx.query = info["text"]
+                except Exception as exc:  # an LLM call: degrades as in the JAX package
+                    metrics.mark_degraded("language", str(exc))
+
         simple = self._is_simple_query(ctx.query)
 
         # Phase 1: planning
@@ -507,6 +557,19 @@ class RAGOrchestrator:
             else:
                 ctx.fused_docs = dedup_best_score([h for r in runs for h in r])[
                     : self.config.retrieval.fused_top_k]
+
+        # web search (host fetches and LLM calls): served alone when the
+        # retrieval found nothing, fused with it when the plan asks
+        if not ctx.fused_docs and self.web_search.enabled:
+            res = self.web_search.run(ctx, force=True)
+            if res.success and res.data:
+                ctx.fused_docs = list(res.data)[: self.config.retrieval.fused_top_k]
+        elif ctx.plan.get("use_web_search") and self.web_search.enabled:
+            res = self.web_search.run(ctx)
+            if res.success and res.data:
+                ctx.fused_docs = self.fusion.fuse(
+                    [ctx.fused_docs, res.data],
+                    top_k=self.config.retrieval.fused_top_k)
 
     def invalidate_fusion_calibration(self) -> None:
         """Re-calibrate the leg weights on the next query. Call after
@@ -788,9 +851,9 @@ class RAGOrchestrator:
 
     def get_agent_stats(self) -> List[Dict[str, Any]]:
         agents = [self.planning, self.decomposition, self.rewrite, self.expansion,
-                  self.dense, self.bm25, self.fusion, self.automerge, self.rerank,
-                  self.synthesis, self.critic, self.context_eval, self.summarization,
-                  self.multihop]
+                  self.dense, self.bm25, self.web_search, self.fusion, self.automerge,
+                  self.rerank, self.synthesis, self.critic, self.context_eval,
+                  self.summarization, self.multihop]
         return [a.get_stats() for a in agents]
 
 

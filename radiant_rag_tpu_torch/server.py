@@ -14,16 +14,18 @@ The port's counterpart of `radiant_rag_tpu/server.py`. Endpoints:
   POST /simple_query      {"question": str}: the minimal RAG path
   POST /conversations     a new conversation id
   POST /ingest/documents  {"paths": [str], "recursive"?: bool}
-
-and the JAX package's crawler routes (/ingest/urls, /ingest/github), whose
-app methods are not ported yet: they answer 500 with the reason and its
-ROADMAP item, as any failing handler does.
+  POST /ingest/urls       {"urls": [str]}: a breadth-first crawl of each, ingested
+  POST /ingest/github     {"url": str}: a GitHub repository's files, ingested
 
 Implementation: stdlib ThreadingHTTPServer. Device work is serialized
-through the app's `device_lock` (`RagAPI._lock`): the search batches, the
-ingest, /health's embedding, and each device stage of a /query run, which
-takes it per stage, never across an LLM call, so a slow LLM does not stall
-/search. /search scales past the lock by cross-request coalescing
+through the app's `device_lock` (`RagAPI._lock`): the search batches,
+/health's embedding, and each device stage of a /query run, which takes it
+per stage, never across an LLM call, so a slow LLM does not stall /search.
+The three ingest routes leave the lock to the app, which holds it only for
+the ingest's device work (the embed, upsert and BM25 sync): reading files
+and the crawl's network I/O run outside it, so a slow disk or site does
+not stall /search either (the JAX routes hold the lock across the whole
+ingest, crawl included). /search scales past the lock by cross-request coalescing
 (`utils/batching.py`): concurrent searches with the same (mode, top_k)
 merge into one batch, and with `server.pipeline_depth` > 1 the coalescer
 dispatches a batch under the lock and resolves it outside, so one batch's
@@ -166,19 +168,18 @@ class RagAPI:
             paths = body.get("paths") or []
             if not paths:
                 return 400, {"error": "missing 'paths'"}
-            with self._lock:
-                return 200, self.app.ingest_documents(
-                    paths, recursive=bool(body.get("recursive", True)))
+            return 200, self.app.ingest_documents(  # the lock: its ingest only
+                paths, recursive=bool(body.get("recursive", True)))
         if method == "POST" and path == "/ingest/urls":
             urls = body.get("urls") or []
             if not urls:
                 return 400, {"error": "missing 'urls'"}
-            return 200, self.app.ingest_urls(urls)
+            return 200, self.app.ingest_urls(urls)  # the lock: its ingest only
         if method == "POST" and path == "/ingest/github":
             url = body.get("url", "")
             if not url:
                 return 400, {"error": "missing 'url'"}
-            return 200, self.app.ingest_github(url)
+            return 200, self.app.ingest_github(url)  # the lock: its ingest only
         if method == "POST" and path == "/conversations":
             return 200, {"conversation_id": self.app.start_conversation()}
         return 404, {"error": f"unknown endpoint {method} {path}"}

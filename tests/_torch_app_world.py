@@ -35,8 +35,11 @@ QUERIES = ["solar panel energy", "laser light crystal", "memory cache index", "w
 
 
 def _sections(mod, tmp, **over):
-    """The sections both packages read, as each package's dataclasses."""
-    return dict(
+    """The sections both packages read, as each package's dataclasses;
+    `over` sets fields of any section ({"pipeline": {...}})."""
+    import dataclasses
+
+    out = dict(
         index=mod.IndexConfig(dim=32, initial_capacity=256, data_dir=str(tmp / "idx"),
                               **over.get("index", {})),
         embedding=mod.EmbeddingConfig(**EMB),
@@ -45,6 +48,11 @@ def _sections(mod, tmp, **over):
         server=mod.ServerConfig(max_batch=16, max_wait_ms=20.0),
         cross_encoder=mod.CrossEncoderConfig(max_seq_len=64, batch_size=16),
     )
+    for name, fields in over.items():
+        if name != "index":
+            out[name] = dataclasses.replace(out.get(name, getattr(mod.AppConfig(), name)),
+                                            **fields)
+    return out
 
 
 def make_apps(tmp, responder=None, **over):

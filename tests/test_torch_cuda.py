@@ -657,3 +657,43 @@ def test_two_level_descent_on_card(card, monkeypatch):
     srt = np.sort(knn, axis=1)
     assert not (srt[:, 1:] == srt[:, :-1]).any()
     assert valid[adj[:, deg:]].all()
+
+
+def test_mmr_template_on_card_equals_cpu(card):
+    """TEMPLATE 4's MMR (`agents/agent_template._mmr_select`, plain PyTorch)
+    on the card picks what the CPU picks over the same float32 vectors, and
+    its agent runs the selection there as a device stage."""
+    from radiant_rag_tpu_torch.agents.agent_template import _mmr_select
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(12)
+    for n, d, k, lam in ((40, 384, 10, 0.7), (200, 64, 25, 0.5), (8, 32, 8, 0.0)):
+        vecs = rng.standard_normal((n, d)).astype(np.float32)
+        vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+        qv = vecs[1] + 0.2 * rng.standard_normal(d).astype(np.float32)
+        cpu = _mmr_select(torch.from_numpy(vecs), torch.from_numpy(qv), lam, k)
+        got = _mmr_select(torch.from_numpy(vecs).to(card), torch.from_numpy(qv).to(card), lam, k)
+        assert got.device.type == "cuda" and got.cpu().tolist() == cpu.tolist()
+
+
+def test_profiler_trace_on_card_names_the_kernels(card, tmp_path):
+    """`utils/profiling.profiler_trace` records CUDA activity: the Chrome
+    trace holds the scan kernel's launches under their names and the
+    annotation; `device_timer` copies the output to the host."""
+    import json
+
+    from radiant_rag_tpu_torch.utils.profiling import annotate, device_timer, profiler_trace
+
+    codes, qi, mask = _inputs(3, 20_000, 384, 64, -127, 128, card)
+    ck.int8_scan_topk(codes, qi, mask, 40)
+    torch.cuda.synchronize()
+    with profiler_trace(str(tmp_path / "tr")):
+        with annotate("scan.window"):
+            for _ in range(3):
+                ck.int8_scan_topk(codes, qi, mask, 40)
+    trace = json.loads((tmp_path / "tr" / "trace.json").read_text())
+    kernels = [e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    assert any("scan" in name for name in kernels), sorted(set(kernels))[:20]
+    assert any(e.get("name") == "scan.window" for e in trace["traceEvents"])
+    stats = device_timer(lambda: ck.int8_scan_topk(codes, qi, mask, 40), iters=3)
+    assert 0 < stats["min_ms"] <= stats["median_ms"] <= stats["max_ms"]

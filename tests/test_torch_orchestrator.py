@@ -450,7 +450,7 @@ def test_rerank_calibration_failure_raises(big):
 def test_agent_stats_after_a_run(stacks):
     _, got, (jo, to) = run_both(stacks, "What do mitochondria produce?")
     names = [s["name"] for s in to.get_agent_stats()]
-    assert names == [s["name"] for s in jo.get_agent_stats() if s["name"] != "web_search"]
+    assert names == [s["name"] for s in jo.get_agent_stats()] and "web_search" in names
     runs = {s["name"]: s["runs"] for s in to.get_agent_stats()}
-    assert runs == {s["name"]: s["runs"] for s in jo.get_agent_stats() if s["name"] in runs}
+    assert runs == {s["name"]: s["runs"] for s in jo.get_agent_stats()}
     assert dataclasses.asdict(to.config.rerank) == dataclasses.asdict(jo.config.rerank)

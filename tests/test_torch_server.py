@@ -106,8 +106,8 @@ def test_http_round_trip(served):
     assert {"requests", "batches", "max_batch", "pipelined"} <= set(body["serving"])
     assert _req(port, "POST", "/search", raw=b"{not json")[0] == 400
     assert _req(port, "POST", "/search", raw=b"[1, 2]")[0] == 400
-    status, body = _req(port, "POST", "/ingest/urls", {"urls": ["http://localhost/"]})
-    assert status == 500 and "item 11" in body["error"]
+    status, body = _req(port, "POST", "/ingest/urls", {"urls": ["ftp://localhost/"]})
+    assert status == 200 and body["pages_crawled"] == 0 and body["chunks_ingested"] == 0
 
 
 def test_error_paths_match_jax(served):
@@ -125,13 +125,18 @@ def test_error_paths_match_jax(served):
 
 
 @pytest.mark.parametrize("method,path,body", [
-    ("POST", "/ingest/urls", {"urls": ["http://localhost/"]}),
+    ("POST", "/ingest/urls", {"urls": ["ftp://localhost/"]}),
     ("POST", "/ingest/github", {"url": "https://localhost/repo"}),
 ])
 def test_deferred_routes_answer_500_with_the_reason(served, method, path, body):
+    """The crawler routes, which answered 500 until the crawlers were
+    ported, answer 200 as the JAX routes do: here on a URL the crawler
+    refuses (not http) and one that is not GitHub's, which ingest nothing
+    (the crawls: tests/test_torch_web.py)."""
     status, out = served["api"]["t"].handle(method, path, body)
-    assert status == 500 and out["error"].startswith("NotImplementedError")
-    assert "ROADMAP queue A item 11 (rest)" in out["error"]
+    jstatus, ref = served["api"]["j"].handle(method, path, body)
+    out.pop("duration_s"), ref.pop("duration_s")
+    assert status == jstatus == 200 and out == ref and out["chunks_ingested"] == 0
 
 
 def test_handler_exception_to_500(served):
@@ -156,6 +161,32 @@ def test_ingest_documents_route(served, tmp_path):
                                             {"paths": [str(tmp_path)]})
     assert status == 200 and out["chunks_ingested"] == 1
     assert t.store.count_documents() == n + 2  # a parent and its leaf
+
+
+def test_ingest_documents_route_holds_the_lock_for_the_ingest_only(served, tmp_path):
+    """/ingest/documents reads and parses its files outside the device lock
+    and runs the embed, upsert and BM25 sync (`_ingest_chunks`) under it,
+    as the crawler routes do: the app holds the rule, not the route."""
+    (tmp_path / "lock.txt").write_text("Pulsars spin in the lock test. " * 4)
+    t = served["t"]
+    owned = []
+    parse, ingest = t.processor.process_paths, t._ingest_chunks
+
+    def watch(kind, fn):
+        def wrapper(*a, **kw):
+            owned.append((kind, t.device_lock._is_owned()))
+            return fn(*a, **kw)
+        return wrapper
+
+    t.processor.process_paths = watch("parse", parse)
+    t._ingest_chunks = watch("ingest", ingest)
+    try:
+        status, out = served["api"]["t"].handle("POST", "/ingest/documents",
+                                                {"paths": [str(tmp_path)]})
+    finally:
+        del t.processor.process_paths, t._ingest_chunks
+    assert status == 200 and out["chunks_ingested"] == 1
+    assert owned == [("parse", False), ("ingest", True)]
 
 
 @pytest.mark.parametrize("impl", ["jax", "torch"])

@@ -308,11 +308,8 @@ def test_chip_smoke_preset_literal_is_the_shipped_file():
     ("index", "graph_ef_construction", 400, "neither package"),
     ("index", "growth_factor", 3.0, "neither package"),
     ("quantization", "int8_on_disk_only", "true", "neither package"),
-    ("language", "enabled", "true", "queue A item 11"),
-    ("pipeline", "use_web_search", "yes", "queue A item 11"),
     ("ingestion", "use_intelligent_chunking", "true", "neither package"),
     ("server", "port", 9000, "neither package"),
-    ("metrics", "otel_enabled", True, "queue A item 11"),
 ])
 def test_config_refuses_settings_the_port_has_no_behaviour_for(section, key, value, reason):
     """The JAX package accepts these; the port would run another
@@ -323,6 +320,22 @@ def test_config_refuses_settings_the_port_has_no_behaviour_for(section, key, val
     default = getattr(getattr(tcfg.AppConfig(), section), key)
     assert getattr(getattr(tcfg.config_from_dict({section: {key: default}}), section),
                    key) == default
+
+
+@pytest.mark.parametrize("section,key,value,want", [
+    ("language", "enabled", "true", True),
+    ("pipeline", "use_web_search", "yes", True),
+    ("metrics", "otel_enabled", True, True),
+])
+def test_config_serves_the_ported_settings_as_jax_does(tmp_path, section, key, value, want):
+    """Settings that raised until their layer was ported (the language
+    phase, web search, the OpenTelemetry exporter) parse, with the JAX
+    package's coercion, into the value the JAX package serves."""
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump({section: {key: value}}))
+    ref = getattr(getattr(jcfg.load_config(str(path)), section), key)
+    got = getattr(getattr(tcfg.config_from_dict({section: {key: value}}), section), key)
+    assert got == ref == want
 
 
 def test_config_validation_and_coercion_match_jax():

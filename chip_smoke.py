@@ -72,7 +72,15 @@ seed: 1M docs of clustered 384-d vectors and zipfian 48-token texts):
            card step against a float32 CPU step, a repeated batch's
            falling loss, the checkpoint restored bit for bit by a fresh
            Embedder that embeds as the swapped encoder, the calibration
-           run again, and kernel rows at the mining's shapes.
+           run again, and kernel rows at the mining's shapes. (c) the dp x
+           tp layout on logical shards: a (2, 2) mesh of cuda:0 against
+           the (1, 1) mesh from one init over 3 mined batches of (a)'s
+           shape, float32 and bf16, to the CPU tests' tolerances, then
+           `train_cross_encoder` on (2, 1) against (1, 1); step ms, device
+           work, launches and peak memory of each. (d) with more than one
+           visible card only: the same on a real mesh of the cards and a
+           two-rank NCCL `merge_across_processes`; otherwise one line
+           says it did not run (not a pass).
 
   phase 10 the corpus-sharded pod store over phase 7's corpus (after phase
            9): `create_vector_store` with `index.backend: sharded` and
@@ -120,6 +128,21 @@ seed: 1M docs of clustered 384-d vectors and zipfian 48-token texts):
            and `device_timer` against CUDA events, and the template agent's
            MMR on the card against the CPU. Host layers: no kernel of
            their own.
+  phase 13 the transformers backends (after phase 12): which of
+           transformers, tokenizers and PIL are installed; over tiny
+           random-weight models built in the script, `llm.backend: local`
+           (greedy chat and stream on the card in float32 against the CPU,
+           tokens/s in float32 and float16), one `app.query` over phase
+           7's app with the local generator, `TransformersEmbeddingBackend`
+           and the VLM captioner on the card against the CPU; then each
+           backend's error naming transformers when it is hidden (or
+           missing: then only that, and not a pass of the backends).
+
+Other modes, each on a card: `--step-launches ROOT` prints the launches
+and step ms of the (1, 1) training step of the package under ROOT (this
+checkout or an older one, to compare two); `--cards` runs phase 9 (d)
+alone on random batches of (a)'s shape (for a machine with more than one
+card); `--nccl-merge ADDR WORLD RANK` is one rank of (d)'s merge.
 
 Prints the card's name and power limit, the phases' numbers, one
 {"kernels": [...]} JSON line, and as its last line
@@ -1917,6 +1940,12 @@ def phase_serving(ck, main_path, vecs, texts, smi, known_keys):
     log(f"phase 12: {time.perf_counter() - t12:.1f} s")
     known = set(known_keys) | {row["_key"] for row in rows}
     rows += path_rows(ck, eng, bm, qdev2k, qt2k, sorted(host_keys - known), "host layers")
+    t13 = time.perf_counter()
+    tf_keys = phase_transformers(ck, main_path, app, questions, smi, d)
+    log(f"phase 13: {time.perf_counter() - t13:.1f} s")
+    known = set(known_keys) | {row["_key"] for row in rows}
+    rows += path_rows(ck, eng, bm, qdev2k, qt2k, sorted(tf_keys - known),
+                      "the local generator's app.query")
     del app, store, models, searcher, res, res2k, qdev, qdev2k
     tmp.cleanup()
     return rows
@@ -2692,7 +2721,7 @@ def train_step_check(sampler, ckpt_cfg, card):
     for label, dev, dtype in (("card bf16", card, torch.bfloat16),
                               ("cpu float32", "cpu", torch.float32),
                               ("cpu bf16", "cpu", torch.bfloat16)):
-        state = make_train_state(dataclasses.replace(cfg, dtype=dtype), TRAIN_LR,
+        state = make_train_state(dataclasses.replace(cfg, dtype=dtype), learning_rate=TRAIN_LR,
                                  init_params_tree=init, device=dev)
         step, place = contrastive_train_step(dev)
         t = time.perf_counter()
@@ -2843,9 +2872,550 @@ def phase_training(ck, main_path, app, texts, smi, tmp_dir: Path):
     log(f"phase 9 train_cross_encoder: {CE_STEPS} steps of {CE_BATCH} pairs in {t_ce:.1f} s; "
         f"metrics {json.dumps(ce_metrics)}; launches {d_ce}")
     sum_b = probe_ce.summary("(b) cross-encoder training", t_ce, ce_metrics, peak_ce, smi)
+
+    # (c) the dp x tp layout on logical shards of the card; (d) on real cards
+    t_c = time.perf_counter()
+    mesh_keys, sum_c, mesh_batches = phase_training_mesh(ck, main_path, app, probe.sampler,
+                                                         texts, smi, emb.device)
+    launched |= mesh_keys
+    log(f"phase 9 (c): {time.perf_counter() - t_c:.1f} s")
+    sum_d = phase_training_cards(mesh_batches, emb.bert_cfg, smi)
     log("phase 9 summary: " + json.dumps({"a": sum_a, "b": sum_b, "checks": checks,
-                                          "resident_gib": resident / 2**30}))
+                                          "resident_gib": resident / 2**30,
+                                          "c_s": time.perf_counter() - t_c,
+                                          "d_ran": sum_d is not None}))
     return launched, mining_queries
+
+
+# phase 9 (c) and (d): the dp x tp training layout
+MESH_STEPS = 3  # steps held against the (1, 1) run
+MESH_TIMED = 6  # steps timed after them (p50, launches, peak memory)
+MESH_SHAPES = ((1, 1), (2, 2))  # logical shards of one card
+CE_MESH_SHAPES = ((1, 1), (2, 1))
+# float32: the first step's gradients within tests/test_torch_train.py's
+# gradient tolerance (rtol 1e-4, atol 1e-6), each step's loss within rtol
+# 1e-5, and after 3 steps every parameter within steps x lr, the count
+# past the CPU tests' 2e-5 reported (tests/test_torch_parallel_train.py
+# holds 2e-5 at its width; at this width an element whose gradient lies
+# within float32 summation noise can take Adam's normalized step, up to
+# lr a step, either way: the allowance the CPU tests give the attention
+# key biases, whose exact gradient is 0). bfloat16, every mesh against the
+# bf16 (1, 1) run: each step's loss within 1e-2, and the update of the
+# first and last layer at cosine >= 0.99 / 0.9 (the row-split partials
+# round to bf16 before their sum, and half a batch's products round
+# otherwise; at 12 layers the difference grows with depth: the sound runs
+# read 0.997 / 0.972 and the cross-encoder's (2, 1) 0.999 / 0.952). A
+# mesh with a model axis also meets the band phase 9 holds the
+# single-device bf16 step to against float32 (TRAIN_LOSS_ATOL,
+# TRAIN_MIN_UPDATE_COS: the first step's loss and first and last layer's
+# update, here against the float32 (1, 1) run). Phase 9 (c) runs a
+# planted fault under each bf16 gate set (a per-replica InfoNCE; a
+# cross-encoder loss over the first data row only) and fails unless the
+# gates reject it.
+MESH_LOSS_RTOL, MESH_PARAM_ATOL = 1e-5, 2e-5
+MESH_GRAD_RTOL, MESH_GRAD_ATOL = 1e-4, 1e-6
+MESH_BF16_LOSS_ATOL = 1e-2
+MESH_BF16_MIN_UPDATE_COS = (0.99, 0.9)
+SEQ = 128  # the samplers' max_seq_len at this width
+
+
+def step_profile(step, state, batch):
+    """One training step under torch.profiler (device activity only):
+    its kernels, copies and memsets, and their summed device ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+    counts = {"kernels": 0, "copies": 0, "memsets": 0, "device_ms": 0.0}
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        kind = ("copies" if e.name.startswith("Memcpy") else
+                "memsets" if e.name.startswith("Memset") else "kernels")
+        counts[kind] += 1
+        counts["device_ms"] += e.time_range.elapsed_us() / 1e3
+    return state, met, counts
+
+
+def random_train_batch(rng, b=TRAIN_BATCH, hard=TRAIN_HARD, s=SEQ, vocab=30522):
+    """A contrastive batch of phase 9 (a)'s shape from a seed: b queries,
+    b documents and b * hard negatives of s tokens, random lengths."""
+    out = {}
+    for side, rows in (("q", b), ("d", b), ("n", b * hard)):
+        mask = (np.arange(s)[None, :] < rng.integers(8, s + 1, (rows, 1))).astype(np.int32)
+        ids = rng.integers(1000, vocab, (rows, s)).astype(np.int32) * mask
+        ids[:, 0] = CLS_ID
+        out[f"{side}_ids"], out[f"{side}_mask"] = ids, mask
+    return out
+
+
+def mesh_embedder_run(cfg, init, batches, mesh, label, timed=True):
+    """MESH_STEPS steps on `mesh` from `init` over `batches` (the first
+    step's gradients and the params after them kept on the host), then
+    (if `timed`) MESH_TIMED more timed with CUDA events and one profiled:
+    (params, numbers, grads, params after the first step)."""
+    import torch
+
+    from radiant_rag_tpu_torch.parallel.train import contrastive_train_step, make_train_state
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    state = make_train_state(cfg, mesh, TRAIN_LR, init_params_tree=init)
+    step, place = contrastive_train_step(mesh)
+    losses, spans = [], []
+
+    def one(batch):
+        nonlocal state
+        placed = place(batch)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        state, met = step(state, placed)
+        e1.record()
+        spans.append((e0, e1))
+        return met["loss"]
+
+    grads = params1 = None
+    for batch in batches:
+        losses.append(one(batch))
+        if grads is None:  # the first step's, before the next zeroes them
+            grads = {n: g.float().cpu().clone() for n, g in state.grads.items()}
+            params1 = {k: v.detach().float().cpu().clone() for k, v in state.params.items()}
+    params = {k: v.detach().float().cpu().clone() for k, v in state.params.items()}
+    if not timed:
+        numbers = {"mesh": list(mesh.shape), "dtype": str(cfg.dtype).rsplit(".", 1)[-1],
+                   "losses": [float(x) for x in losses]}
+        log(f"phase 9 {label}: {json.dumps(numbers)}")
+        del state, step, place
+        torch.cuda.empty_cache()
+        return params, numbers, grads, params1
+    devices = sorted({d.index for d in mesh.shards if d.type == "cuda"})
+
+    def sync_all():  # every card of the mesh (events time the first one)
+        for i in devices:
+            torch.cuda.synchronize(i)
+
+    sync_all()
+    t = time.perf_counter()
+    for i in range(MESH_TIMED):
+        one(batches[i % len(batches)])
+    sync_all()
+    wall_ms = (time.perf_counter() - t) / MESH_TIMED * 1e3
+    state, _, counts = step_profile(step, state, place(batches[0]))
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in spans]
+    numbers = {"mesh": list(mesh.shape), "devices": [str(d) for d in mesh.shards],
+               "dtype": str(cfg.dtype).rsplit(".", 1)[-1],
+               "losses": [float(x) for x in losses], "step_ms": step_ms,
+               "step_ms_p50": _pct(step_ms[MESH_STEPS:], 0.5),
+               "wall_ms_per_step": wall_ms, "launches_per_step": counts,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "resident_gib": resident / 2**30}
+    log(f"phase 9 {label}: {json.dumps(numbers)}")
+    del state, step, place
+    torch.cuda.empty_cache()
+    return params, numbers, grads, params1
+
+
+def _layer_of(name: str):
+    m = re.search(r"(?:^|\.)layer_(\d+)\.", name)
+    return int(m.group(1)) if m else None
+
+
+def _update_cos(a, b, init, names) -> float:
+    """Cosine of two runs' updates (p - init) over the named tensors."""
+    u = np.concatenate([(a[n] - init[n]).numpy().ravel() for n in names]).astype(np.float64)
+    v = np.concatenate([(b[n] - init[n]).numpy().ravel() for n in names]).astype(np.float64)
+    return float(u @ v / (np.linalg.norm(u) * np.linalg.norm(v)))
+
+
+def compare_mesh_runs(ref, got, init, steps, lr, what, f32=None):
+    """A mesh run against the (1, 1) run from the same init and batches, to
+    the tolerance for its dtype (MESH_* above; the gradients where both
+    runs kept them; `f32`, the float32 (1, 1) run, for a bf16 run with a
+    model axis). Returns the gaps, with "failed": the gates they miss."""
+    (ref_p, ref_n, ref_g, _), (got_p, got_n, got_g, got_p1) = ref, got
+    rl, gl = np.asarray(ref_n["losses"]), np.asarray(got_n["losses"])
+    loss_gap = float(np.max(np.abs(gl - rl)))
+    if ref_n["dtype"] == "float32":
+        # the leaves whose exact gradient is 0: the attention key biases, and
+        # the classifier's bias under the listwise loss
+        key_bias = [n for n in ref_p if n.endswith("attention.key.bias") or n == "classifier.bias"]
+        diff = {n: (got_p[n] - ref_p[n]).abs() for n in ref_p}
+        gap, worst = max((float(diff[n].max()), n) for n in ref_p if n not in key_bias)
+        kb_gap = max(float(diff[n].max()) for n in key_bias)
+        past = sum(int((diff[n] > MESH_PARAM_ATOL).sum()) for n in ref_p if n not in key_bias)
+        out = {"loss_gap": loss_gap, "param_gap": gap, "worst_param": worst,
+               "key_bias_gap": kb_gap, "elements_past_2e-5": past,
+               "elements": sum(t.numel() for t in ref_p.values())}
+        gates = {f"losses within rtol {MESH_LOSS_RTOL}": bool(
+                     np.allclose(gl, rl, rtol=MESH_LOSS_RTOL, atol=0)),
+                 f"params within {steps * lr}": gap <= steps * lr and kb_gap <= steps * lr}
+        if ref_g is not None and got_g is not None:
+            over = {n: float(((got_g[n] - ref_g[n]).abs() - MESH_GRAD_RTOL * ref_g[n].abs())
+                             .max()) for n in ref_g}
+            out["grad_excess_over_rtol"], out["grad_worst"] = max(
+                (v, n) for n, v in over.items())
+            gates[f"first-step gradients within rtol {MESH_GRAD_RTOL} atol {MESH_GRAD_ATOL}"] = (
+                out["grad_excess_over_rtol"] <= MESH_GRAD_ATOL)
+        out["failed"] = [g for g, ok in gates.items() if not ok]
+        log(f"phase 9 {what} float32 against (1, 1): {json.dumps(out)} (gates: "
+            f"{list(gates)}; the count past {MESH_PARAM_ATOL} reported)")
+        return out
+    layers = sorted({_layer_of(n) for n in ref_p} - {None})
+    names = {layer: [n for n in ref_p if _layer_of(n) == layer
+                     and not n.endswith("attention.key.bias")] for layer in layers}
+    cos = {layer: _update_cos(got_p, ref_p, init, names[layer]) for layer in layers}
+    ends = (layers[0], layers[-1])
+    out = {"loss_gap": loss_gap, "min_update_cos": min(cos.values()),
+           "update_cos": [cos[layer] for layer in layers]}
+    gates = {f"each step's loss within {MESH_BF16_LOSS_ATOL} of the bf16 (1, 1) run's":
+                 loss_gap <= MESH_BF16_LOSS_ATOL,
+             f"first / last layer's update cosine to the bf16 (1, 1) run's >= "
+             f"{MESH_BF16_MIN_UPDATE_COS}": all(cos[layer] >= t for layer, t in
+                                                zip(ends, MESH_BF16_MIN_UPDATE_COS))}
+    if f32 is not None:
+        f32_p1, f32_loss = f32[3], f32[1]["losses"][0]
+        out["first_step_loss_gap_to_float32"] = abs(got_n["losses"][0] - f32_loss)
+        out["first_step_update_cos_to_float32"] = [
+            _update_cos(got_p1, f32_p1, init, names[layer]) for layer in ends]
+        gates[f"first step's loss within {TRAIN_LOSS_ATOL} of the float32 (1, 1) run's"] = (
+            out["first_step_loss_gap_to_float32"] <= TRAIN_LOSS_ATOL)
+        gates[f"first step's first / last layer's update cosine to the float32 (1, 1) run's >= "
+              f"{TRAIN_MIN_UPDATE_COS}"] = all(
+            c >= t for c, t in zip(out["first_step_update_cos_to_float32"], TRAIN_MIN_UPDATE_COS))
+    out["failed"] = [g for g, ok in gates.items() if not ok]
+    log(f"phase 9 {what} bfloat16 after {steps} steps: {json.dumps(out)} (gates: {list(gates)})")
+    return out
+
+
+class Planted:
+    """Inside the block `module.name` is `fn(original)`: a deliberately wrong
+    program, run to show that the gates reject it."""
+
+    def __init__(self, module, name, make):
+        self.module, self.name, self.make = module, name, make
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.make(self.orig))
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def per_replica_info_nce(orig):
+    """The planted fault of the InfoNCE: a loss per data row over its own
+    block (half the negatives on two rows), averaged over the rows, as a
+    DDP-style replica loss would be. On logical shards of one card every
+    row's parameters are row 0's, so each row runs as a one-row batch."""
+    def loss(state, rows, temperature=0.05):
+        outs = [orig(state, [r], temperature) for r in rows]
+        mean = sum(x for x, _ in outs) / len(outs)
+        return mean, {"loss": mean, "accuracy": sum(m["accuracy"] for _, m in outs) / len(outs)}
+    return loss
+
+
+def first_row_ce_logits(orig):
+    """The planted fault of the cross-encoder: the loss over the first data
+    row's groups only (half the batch on two rows)."""
+    return lambda state, rows: orig(state, rows[:1])
+
+
+def mesh_embedder_checks(cfg, init, batches, meshes, card, label, plant=False):
+    """Each mesh's float32 and bfloat16 runs against the (1, 1) run on
+    `card`; with `plant` (logical shards of one card), also a bf16 run of
+    each mesh with a model axis under a per-replica InfoNCE, which the
+    gates must reject. Returns the numbers."""
+    import torch
+
+    from radiant_rag_tpu_torch.parallel import train as tt
+    from radiant_rag_tpu_torch.parallel.mesh import create_mesh
+
+    init_t = {k: v.float() for k, v in init.items()}
+    out, f32 = {}, None
+    for dtype in (torch.float32, torch.bfloat16):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        name = str(dtype).rsplit(".", 1)[-1]
+        ref = mesh_embedder_run(c, init, batches, create_mesh(devices=[card]),
+                                f"{label} {name} (1, 1)")
+        out[name] = {"(1, 1)": ref[1]}
+        if dtype == torch.float32:
+            f32 = ref
+        else:  # the single-device bf16 step against float32: the band
+            layers = sorted({_layer_of(n) for n in init_t} - {None})
+            ends = [[n for n in init_t if _layer_of(n) == layer
+                     and not n.endswith("attention.key.bias")] for layer in (layers[0],
+                                                                             layers[-1])]
+            out[name]["(1, 1)"]["first_step_update_cos_to_float32"] = [
+                _update_cos(ref[3], f32[3], init_t, n) for n in ends]
+            out[name]["(1, 1)"]["first_step_loss_gap_to_float32"] = abs(
+                ref[1]["losses"][0] - f32[1]["losses"][0])
+        for shape, mesh in meshes:
+            got = mesh_embedder_run(c, init, batches, mesh, f"{label} {name} {shape}")
+            split = mesh.shape[1] > 1
+            gaps = compare_mesh_runs(ref, got, init_t, len(batches), TRAIN_LR,
+                                     f"{label} {shape}",
+                                     f32=f32 if dtype == torch.bfloat16 and split else None)
+            check(not gaps["failed"], f"{label} {shape} {name}: {gaps}")
+            out[name][str(shape)] = {**got[1], **gaps}
+            if plant and dtype == torch.bfloat16 and split:
+                with Planted(tt, "info_nce_loss", per_replica_info_nce):
+                    bad = mesh_embedder_run(c, init, batches, mesh,
+                                            f"{label} {name} {shape} planted", timed=False)
+                pg = compare_mesh_runs(ref, bad, init_t, len(batches), TRAIN_LR,
+                                       f"{label} {shape} planted per-replica InfoNCE", f32=f32)
+                check(pg["failed"], f"the bf16 gates passed a per-replica InfoNCE: {pg}")
+                out[name][f"{shape} planted per-replica InfoNCE"] = pg
+    return out
+
+
+def phase_training_mesh(ck, main_path, app, sampler, texts, smi, card):
+    """Phase 9 (c): the dp x tp layout on logical shards of the card. A
+    (2, 2) mesh of cuda:0 against the (1, 1) mesh at MiniLM-L12 width, from
+    one seeded init over MESH_STEPS host batches that (a)'s sampler draws
+    (batch 256, 2 hard negatives mined by the sketch scan: 1,024
+    sequences), in float32 and bfloat16; then `train_cross_encoder` on a
+    (2, 1) mesh against (1, 1). Step ms, device work, launches and peak
+    memory of each. Returns the shapes its mining launched and the
+    numbers."""
+    import torch
+
+    from radiant_rag_tpu_torch.models.bert import init_module, init_params
+    from radiant_rag_tpu_torch.models.cross_encoder import CrossEncoderModel
+    from radiant_rag_tpu_torch.parallel import data as tdata
+    from radiant_rag_tpu_torch.parallel import train as tt
+    from radiant_rag_tpu_torch.parallel.mesh import create_mesh
+
+    card = torch.device(card)
+    if card.type == "cuda" and card.index is None:
+        card = torch.device("cuda", torch.cuda.current_device())
+    cfg = dataclasses.replace(app.local_models.embedder.bert_cfg, dtype=torch.float32)
+    init = init_params(cfg, seed=SEED)
+    check(sampler.batch_size == TRAIN_BATCH and sampler.n_hard == TRAIN_HARD,
+          (sampler.batch_size, sampler.n_hard))
+    batches, d_mine, t_mine = main_path(lambda: [sampler.next_batch()
+                                                 for _ in range(MESH_STEPS)])
+    launched = set(ck.launches_by_shape)
+    check(d_mine["int8_scan_topk"] > 0, f"(c)'s mining launched no sketch scan: {d_mine}")
+    log(f"phase 9 (c): {MESH_STEPS} batches of {batches[0]['q_ids'].shape[0]} queries, "
+        f"{sum(v.shape[0] for k, v in batches[0].items() if k.endswith('ids'))} sequences of "
+        f"{batches[0]['q_ids'].shape[1]} tokens, mined in {t_mine:.1f} s; launches {d_mine}")
+    meshes = [(shape, create_mesh(data=shape[0], model=shape[1],
+                                  devices=[card] * (shape[0] * shape[1])))
+              for shape in MESH_SHAPES if shape != (1, 1)]
+    out = {"embedder": mesh_embedder_checks(cfg, init, batches, meshes, card, "(c)",
+                                            plant=True)}
+
+    # the cross-encoder: train_cross_encoder on a (2, 1) mesh against (1, 1);
+    # in bf16 also under a loss over the first data row only, which the
+    # gates must reject
+    ce_cfg = dataclasses.replace(app.local_models.cross_encoder.bert_cfg, dtype=torch.float32)
+    ce_init = {k: v.float() for k, v in init_module(CrossEncoderModel(ce_cfg), SEED)
+               .state_dict().items()}
+
+    def ce_run(shape, dtype):
+        mesh = create_mesh(data=shape[0], model=shape[1], devices=[card] * (shape[0] * shape[1]))
+        (metrics, params), d_ce, t_ce = main_path(lambda: tdata.train_cross_encoder(
+            texts, bert_cfg=dataclasses.replace(ce_cfg, dtype=dtype), mesh=mesh,
+            steps=MESH_STEPS, batch_size=CE_BATCH, learning_rate=5e-5, max_seq_len=128,
+            log_every=1, seed=SEED, bm25=app.bm25_index.index, rows=range(N_DOCS),
+            hard_negatives=2, random_negatives=1, device_lock=app.device_lock,
+            return_params=True))
+        launched.update(ck.launches_by_shape)
+        check(d_ce["int8_scan_topk"] > 0, f"(c) CE mining launched no sketch scan: {d_ce}")
+        return ({k: v.detach().float().cpu().clone() for k, v in params.items()},
+                {"dtype": str(dtype).rsplit(".", 1)[-1], "losses": [metrics["loss"]], "s": t_ce,
+                 "metrics": metrics}, None, None)
+
+    out["cross_encoder"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).rsplit(".", 1)[-1]
+        runs = {shape: ce_run(shape, dtype) for shape in CE_MESH_SHAPES}
+        gaps = compare_mesh_runs(runs[(1, 1)], runs[(2, 1)], ce_init, MESH_STEPS, 5e-5,
+                                 "(c) train_cross_encoder (2, 1)")
+        check(not gaps["failed"], f"(c) train_cross_encoder (2, 1) {name}: {gaps}")
+        out["cross_encoder"][name] = {str(s): r[1] for s, r in runs.items()} | {"gaps": gaps}
+        if dtype == torch.bfloat16:
+            with Planted(tt, "ce_logits", first_row_ce_logits):
+                bad = ce_run((2, 1), dtype)
+            pg = compare_mesh_runs(runs[(1, 1)], bad, ce_init, MESH_STEPS, 5e-5,
+                                   "(c) train_cross_encoder (2, 1) planted first-row loss")
+            check(pg["failed"], f"the bf16 gates passed a first-row cross-encoder loss: {pg}")
+            out["cross_encoder"][name]["planted first-row loss"] = pg
+    log("phase 9 (c) summary: " + json.dumps({"device": smi, **out}))
+    return launched, out, batches
+
+
+def phase_training_cards(batches, cfg, smi):
+    """Phase 9 (d): the same step on a real mesh of the visible cards (every
+    card on 'data', then half of them on 'model' where there are 4 or more)
+    against (1, 1) on cuda:0, and a two-rank NCCL `merge_across_processes`.
+    Runs only with more than one visible card; otherwise says so and
+    returns None (not a pass)."""
+    import torch
+
+    from radiant_rag_tpu_torch.models.bert import init_params
+    from radiant_rag_tpu_torch.parallel.mesh import create_mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"phase 9 (d): not run: {n} visible card (a real mesh and a two-rank NCCL group "
+            "need more than one); not a pass")
+        return None
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    init = init_params(cfg, seed=SEED)
+    meshes = [((n, 1), create_mesh())]
+    if n >= 4 and n % 2 == 0:
+        meshes.append(((n // 2, 2), create_mesh(model=2)))
+    out = {"cards": n, "device": smi,
+           "embedder": mesh_embedder_checks(cfg, init, batches, meshes,
+                                            torch.device("cuda", 0), "(d)")}
+    out["nccl_merge"] = nccl_merge_two_ranks()
+    log("phase 9 (d) summary: " + json.dumps(out))
+    return out
+
+
+NCCL_DOCS, NCCL_DIM, NCCL_K, NCCL_B = 1 << 20, 384, 16, 256
+
+
+def nccl_merge_two_ranks():
+    """Two processes, one card each, join an NCCL group over tcp on
+    localhost; each searches its half of a seeded corpus and
+    `merge_across_processes` merges the top-k (`nccl_merge_worker`).
+    Returns the workers' reports."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, NCCL_SOCKET_IFNAME=os.environ.get("NCCL_SOCKET_IFNAME", "lo"))
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--nccl-merge",
+                               f"127.0.0.1:{port}", "2", str(rank)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+             for rank in range(2)]
+    reports = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            ok = [line for line in out.splitlines() if line.startswith("NCCL_OK ")]
+            check(p.returncode == 0 and ok, f"an NCCL rank failed ({p.returncode}): {err[-2000:]}")
+            reports.append(json.loads(ok[0][len("NCCL_OK "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log(f"phase 9 (d) two-rank NCCL merge: {json.dumps(reports)}")
+    return reports
+
+
+def nccl_merge_worker(coordinator: str, world: int, rank: int) -> int:
+    """One rank of `nccl_merge_two_ranks`: its half of the corpus searched
+    exactly on its card, the global rows merged across the ranks, held
+    against a full-corpus oracle on its card."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from radiant_rag_tpu_torch.parallel.multihost import (
+        host_shard_bounds, initialize_multihost, merge_across_processes,
+    )
+
+    check(initialize_multihost(coordinator, world, rank), "the NCCL group has one rank")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    full = torch.nn.functional.normalize(
+        torch.randn(NCCL_DOCS, NCCL_DIM, device=dev, generator=g), dim=1)
+    q = torch.nn.functional.normalize(torch.randn(NCCL_B, NCCL_DIM, device=dev, generator=g),
+                                      dim=1)
+    lo, hi = host_shard_bounds(NCCL_DOCS)
+    s, i = torch.topk(q @ full[lo:hi].T, NCCL_K, dim=1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ms, mi = merge_across_processes(s, i + lo, NCCL_K)
+    torch.cuda.synchronize()
+    merge_ms = (time.perf_counter() - t) * 1e3
+    # the oracle: both halves' products (each as its rank computes it), one top-k
+    halves = [host_shard_bounds(NCCL_DOCS, r, world) for r in range(world)]
+    os_, oi = torch.topk(torch.cat([q @ full[a:b].T for a, b in halves], dim=1), NCCL_K, dim=1)
+    check(torch.equal(mi, oi) and torch.equal(ms, os_), "the merged top-k is not the oracle's")
+    print("NCCL_OK " + json.dumps({"rank": rank, "device": str(dev), "bounds": [lo, hi],
+                                   "backend": dist.get_backend(), "merge_ms": merge_ms}),
+          flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def step_launch_probe(root: str) -> int:
+    """The (1, 1) training step of the package under `root` (this checkout,
+    or an older one) at phase 9 (a)'s shape, MiniLM-L12 width in bf16 on
+    cuda:0, random batches from SEED: the kernels, copies and memsets of
+    one step (torch.profiler) and the step ms p50 of 8 (CUDA events).
+    Prints one JSON line; the same numbers from two checkouts compare
+    their steps."""
+    import inspect
+
+    import torch
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    from radiant_rag_tpu_torch.models.bert import BertConfig, init_params
+    from radiant_rag_tpu_torch.parallel import train as tt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = BertConfig()  # MiniLM-L12 width, bf16 compute
+    init = init_params(cfg, seed=SEED)
+    if "mesh" in inspect.signature(tt.make_train_state).parameters:
+        from radiant_rag_tpu_torch.parallel.mesh import create_mesh
+
+        mesh = create_mesh(devices=["cuda:0"])
+        state = tt.make_train_state(cfg, mesh, TRAIN_LR, init_params_tree=init)
+        step, place = tt.contrastive_train_step(mesh)
+    else:  # the single-device signature of the port before the mesh
+        state = tt.make_train_state(cfg, TRAIN_LR, init_params_tree=init, device="cuda:0")
+        step, place = tt.contrastive_train_step("cuda:0")
+    rng = np.random.default_rng(SEED)
+    batches = [place(random_train_batch(rng)) for _ in range(4)]
+    spans = []
+    for i in range(12):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        state, met = step(state, batches[i % 4])
+        e1.record()
+        spans.append((e0, e1))
+    state, met, counts = step_profile(step, state, batches[0])
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in spans[4:]]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"root": str(root), "package": str(Path(tt.__file__).parent.parent),
+                      "device": smi, "launches_per_step": counts,
+                      "step_ms_p50": _pct(step_ms, 0.5), "step_ms": step_ms,
+                      "loss": float(met["loss"])}), flush=True)
+    return 0
+
+
+def cards_only() -> int:
+    """Phase 9 (d) alone, over random batches of (a)'s shape (no corpus,
+    no mining): for a machine with more than one card."""
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from radiant_rag_tpu_torch.models.bert import BertConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    log(smi)
+    rng = np.random.default_rng(SEED)
+    batches = [random_train_batch(rng) for _ in range(MESH_STEPS)]
+    out = phase_training_cards(batches, BertConfig(), smi)
+    return 0 if out is not None else 1
 
 
 
@@ -4677,9 +5247,325 @@ def phase_host_layers(ck, main_path, app, questions, texts, smi, d, card=None):
     return launched
 
 
+# phase 13: the transformers backends (llm.backend: local, the embedding
+# backend, the VLM captioner) on the card
+GEN_WORDS = ["<unk>", "<eos>", "User", "Assistant", "System", ":", "hello", "world", "what",
+             "is", "a", "tpu", "the", "answer", "good"]
+GEN_PROMPTS = [[{"role": "user", "content": "what is a tpu"}],
+               [{"role": "system", "content": "be good"},
+                {"role": "user", "content": "hello world"}],
+               [{"role": "user", "content": "the answer is"}]]
+GEN_TOKENS = 128  # tokens of the tokens/s timing
+GEN_POSITIONS = 16384  # the tiny GPT-2's positions: an agentic prompt fits
+EMB_TEXTS = ["hello world", "laser light", "the a hello", "world laser the light a"]
+EMB_RTOL, EMB_ATOL = 1e-5, 1e-6
+
+
+def tiny_transformers_models(d: Path, pil: bool):
+    """The tests' tiny random-weight models, built here from seeds and saved
+    under `d` (nothing comes from outside the repository): a 2-layer GPT-2
+    with a word-level tokenizer (tests/test_local_llm.py; and one with
+    GEN_POSITIONS positions, which an agentic prompt fits), a 1-layer
+    BertModel (tests/test_local_llm.py), and with PIL a ViT -> GPT-2
+    VisionEncoderDecoder (tests/test_image_captioner.py). Returns their
+    directories."""
+    import torch
+    from tokenizers import Tokenizer
+    from tokenizers.models import WordLevel
+    from tokenizers.pre_tokenizers import Whitespace
+    from transformers import (BertConfig as HFBertConfig, BertModel, GPT2Config, GPT2LMHeadModel,
+                              PreTrainedTokenizerFast)
+
+    def word_tokenizer(words, **special):
+        tok = Tokenizer(WordLevel({w: i for i, w in enumerate(words)}, unk_token=words[0]))
+        tok.pre_tokenizer = Whitespace()
+        return PreTrainedTokenizerFast(tokenizer_object=tok, unk_token=words[0], **special)
+
+    dirs = {"gpt2": d / "gpt2", "gpt2_long": d / "gpt2_long", "bert": d / "bert",
+            "vlm": d / "vlm"}
+    for name, positions in (("gpt2", 64), ("gpt2_long", GEN_POSITIONS)):
+        torch.manual_seed(0)
+        GPT2LMHeadModel(GPT2Config(vocab_size=len(GEN_WORDS), n_positions=positions, n_embd=32,
+                                   n_layer=2, n_head=2, bos_token_id=1, eos_token_id=1)
+                        ).eval().save_pretrained(str(dirs[name]))
+        word_tokenizer(GEN_WORDS, eos_token="<eos>", pad_token="<eos>").save_pretrained(
+            str(dirs[name]))
+    torch.manual_seed(0)
+    BertModel(HFBertConfig(vocab_size=60, hidden_size=32, num_hidden_layers=1,
+                           num_attention_heads=2, intermediate_size=64,
+                           max_position_embeddings=64)).eval().save_pretrained(str(dirs["bert"]))
+    word_tokenizer(["[UNK]", "[PAD]", "hello", "world", "laser", "light", "a", "the"],
+                   pad_token="[PAD]").save_pretrained(str(dirs["bert"]))
+    if not pil:
+        return dirs
+    from transformers import (ViTConfig, ViTImageProcessor, VisionEncoderDecoderConfig,
+                              VisionEncoderDecoderModel)
+
+    vit = ViTConfig(hidden_size=32, num_hidden_layers=1, num_attention_heads=2,
+                    intermediate_size=64, image_size=32, patch_size=16)
+    gpt = GPT2Config(vocab_size=50, n_embd=32, n_layer=1, n_head=2, n_positions=32,
+                     add_cross_attention=True, is_decoder=True, bos_token_id=0, eos_token_id=1,
+                     pad_token_id=1)
+    cfg = VisionEncoderDecoderConfig.from_encoder_decoder_configs(vit, gpt)
+    cfg.decoder_start_token_id = 0
+    cfg.pad_token_id = 1
+    torch.manual_seed(0)
+    VisionEncoderDecoderModel(cfg).eval().save_pretrained(str(dirs["vlm"]))
+    ViTImageProcessor(size={"height": 32, "width": 32}).save_pretrained(str(dirs["vlm"]))
+    word_tokenizer([f"tok{i}" for i in range(50)], bos_token="tok0", eos_token="tok1",
+                   pad_token="tok1").save_pretrained(str(dirs["vlm"]))
+    return dirs
+
+
+def transformers_raises(d: Path, what: str):
+    """Each transformers backend's error naming the missing package: the
+    local generator's permanent LLMError, the embedding backend's and the
+    VLM captioner's ImportError. Returns the three messages."""
+    from radiant_rag_tpu_torch.config import config_from_dict
+    from radiant_rag_tpu_torch.ingestion.image_captioner import HuggingFaceVLMCaptioner
+    from radiant_rag_tpu_torch.llm.backends import LLMError, create_llm_backend
+    from radiant_rag_tpu_torch.llm.model_backends import TransformersEmbeddingBackend
+
+    lines = []
+    local = create_llm_backend(config_from_dict(
+        {"llm": {"backend": "local", "model_path": str(d)}}).llm)
+    for name, fn, err in (
+            ("llm.backend local", lambda: local.chat([{"role": "user", "content": "hi"}]),
+             LLMError),
+            ("TransformersEmbeddingBackend", lambda: TransformersEmbeddingBackend(
+                str(d)).embed(["hi"]), ImportError),
+            ("HuggingFaceVLMCaptioner", lambda: HuggingFaceVLMCaptioner(str(d)), ImportError)):
+        try:
+            fn()
+        except err as exc:
+            check("transformers" in str(exc), f"{name} raised without naming the package: {exc}")
+            if isinstance(exc, LLMError):
+                check(exc.status == 400 and not exc.retryable, f"{name}: {exc.status}")
+            lines.append(f"{name}: {type(exc).__name__}: {exc}")
+        else:
+            check(False, f"{name} ran without transformers")
+    for line in lines:
+        log(f"phase 13 ({what}) {line}")
+    return lines
+
+
+def phase_transformers(ck, main_path, app, questions, smi, d, card=None):
+    """Phase 13: the transformers backends on the card. It reports which of
+    `transformers`, `tokenizers`, PIL and torchvision are installed (the
+    captioner loads the PIL image processor and needs no torchvision).
+    Where they are, over tiny random-weight models built here (`tiny_transformers_models`): (a)
+    `llm.backend: local` (`LocalTransformersLLMBackend`): greedy chat and
+    chat_stream on the card in float32, token ids equal to the CPU run's,
+    the stream equal to the chat, tokens/s in float32 and in float16 (the
+    card's default load); (b) one `app.query` over phase 7's app with the
+    local backend from `llm.backend: local` (it completes; the random
+    generator's output degrades the agents); (c)
+    `TransformersEmbeddingBackend` on the card against the CPU (float32,
+    rtol 1e-5); (d) with PIL, the VLM captioner on the card against the
+    CPU. Then, with transformers hidden, each backend's error naming it.
+    Where transformers is missing, only those errors (not a pass of the
+    backends). Returns the (kernel, D or W, k, B) shapes (b) launched."""
+    import importlib
+    import importlib.util
+
+    import torch
+
+    from radiant_rag_tpu_torch.config import LLMConfig, config_from_dict
+    from radiant_rag_tpu_torch.llm.backends import create_llm_backend
+
+    card = torch.device("cuda", 0) if card is None else torch.device(card)
+    d = Path(d) / "phase13"
+    d.mkdir(parents=True, exist_ok=True)
+    found = {name: importlib.util.find_spec(name) is not None
+             for name in ("transformers", "tokenizers", "PIL", "torchvision")}
+    versions = {name: getattr(importlib.import_module(name), "__version__", "?")
+                for name, ok in found.items() if ok}
+    log(f"phase 13: installed {json.dumps(found)}, versions {json.dumps(versions)}")
+    launched, numbers = set(), {"found": found, "versions": versions}
+    if not (found["transformers"] and found["tokenizers"]):
+        numbers["raises"] = transformers_raises(d, "transformers is not installed")
+        log("phase 13: the transformers backends did not run (no transformers / tokenizers "
+            "here); their errors name the package; not a pass of the backends")
+        log("phase 13 summary: " + json.dumps({"device": smi, **numbers}))
+        return launched
+    from radiant_rag_tpu_torch.ingestion.image_captioner import create_captioner
+    from radiant_rag_tpu_torch.llm.local_backend import (
+        LocalTransformersLLMBackend, from_pretrained_dtype,
+    )
+    from radiant_rag_tpu_torch.llm.model_backends import TransformersEmbeddingBackend
+    from transformers import AutoModelForCausalLM, AutoTokenizer
+
+    t0 = time.perf_counter()
+    dirs = tiny_transformers_models(d, found["PIL"])
+    numbers["build_s"] = time.perf_counter() - t0
+
+    # (a) the local generator: float32 on the card against the CPU, then fp16
+    gdir = str(dirs["gpt2"])
+    tok = AutoTokenizer.from_pretrained(gdir)
+    cpu_b = LocalTransformersLLMBackend(LLMConfig(backend="local", model_path=gdir,
+                                                  device="cpu"))
+    card_b = LocalTransformersLLMBackend(
+        LLMConfig(backend="local", model_path=gdir, device=str(card)),
+        model=AutoModelForCausalLM.from_pretrained(gdir, **from_pretrained_dtype(torch.float32)).to(card)
+        .eval(), tokenizer=tok)
+    gen = []
+    for msgs in GEN_PROMPTS:
+        text = card_b.chat(msgs, temperature=0.0, max_tokens=24)
+        ref = cpu_b.chat(msgs, temperature=0.0, max_tokens=24)
+        stream = list(card_b.chat_stream(msgs, temperature=0.0, max_tokens=24))
+        prompt = tok(card_b._build_prompt(msgs), return_tensors="pt")
+        ids = [b._model.generate(**{k: v.to(b._model.device) for k, v in prompt.items()},
+                                 max_new_tokens=24, do_sample=False,
+                                 pad_token_id=tok.pad_token_id)[0].cpu().tolist()
+               for b in (card_b, cpu_b)]
+        check(ids[0] == ids[1], f"(a) greedy ids differ on the card: {ids}")
+        check(text == ref and text.strip(), f"(a) chat {text!r} vs the CPU's {ref!r}")
+        check("".join(stream).split() == text.split(), f"(a) stream {stream} vs chat {text!r}")
+        gen.append({"text": text, "new_ids": len(ids[0]) - prompt["input_ids"].shape[1],
+                    "chunks": len(stream)})
+    log(f"phase 13 (a) local generator, float32 on {card} against the CPU: greedy ids, chat "
+        f"and stream equal: {json.dumps(gen)}")
+
+    def tokens_per_s(backend, what):
+        prompt = tok(backend._build_prompt(GEN_PROMPTS[0]), return_tensors="pt")
+        inputs = {k: v.to(backend._model.device) for k, v in prompt.items()}
+        kw = dict(max_new_tokens=GEN_TOKENS, min_new_tokens=GEN_TOKENS, do_sample=False,
+                  pad_token_id=tok.pad_token_id)
+        backend._model.generate(**inputs, **kw)  # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = backend._model.generate(**inputs, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        n = out.shape[1] - inputs["input_ids"].shape[1]
+        check(n == GEN_TOKENS, f"{what}: {n} tokens")
+        return n / dt
+
+    # timed on the long model (GEN_TOKENS pass the short one's positions)
+    long_dir = str(dirs["gpt2_long"])
+    card_long = LocalTransformersLLMBackend(
+        LLMConfig(backend="local", model_path=long_dir, device=str(card)),
+        model=AutoModelForCausalLM.from_pretrained(long_dir, **from_pretrained_dtype(torch.float32)).to(card)
+        .eval(), tokenizer=tok)
+    fp16 = create_llm_backend(config_from_dict({"llm": {"backend": "local",
+                                                        "model_path": long_dir}}).llm)
+    t = time.perf_counter()
+    fp16_text = fp16.chat(GEN_PROMPTS[0], temperature=0.0, max_tokens=24)
+    load_s = time.perf_counter() - t
+    check(fp16._model.dtype == torch.float16 and fp16._model.device.type == card.type,
+          f"(a) the default load: {fp16._model.dtype} on {fp16._model.device}")
+    numbers["a"] = {"greedy": gen, "fp16_text": fp16_text, "fp16_load_and_chat_s": load_s,
+                    "tokens_per_s_float32": tokens_per_s(card_long, "float32"),
+                    "tokens_per_s_float16": tokens_per_s(fp16, "float16")}
+    log(f"phase 13 (a) tokens/s at {GEN_TOKENS} new tokens, one prompt: float32 "
+        f"{numbers['a']['tokens_per_s_float32']:.1f}, float16 (llm.device default) "
+        f"{numbers['a']['tokens_per_s_float16']:.1f}; the fp16 load + first chat {load_s:.2f} s")
+
+    # (b) one app.query with llm.backend: local, over phase 7's app
+    local_cfg = config_from_dict({"llm": {"backend": "local",
+                                          "model_path": str(dirs["gpt2_long"]),
+                                          "max_tokens": 16, "temperature": 0.0,
+                                          "max_retries": 0}}).llm
+    client = app.llm
+    saved, calls0 = (client.config, client.backend), client.call_count
+    client.config, client.backend = local_cfg, create_llm_backend(local_cfg)
+    try:
+        check(type(client.backend).__name__ == "LocalTransformersLLMBackend", client.backend)
+        q = questions[0] + " (local generator)"
+        res, d_q, t_q = main_path(lambda: app.query(q, use_cache=False))
+        launched.update(ck.launches_by_shape)
+    finally:
+        client.config, client.backend = saved
+    check(isinstance(res.answer, str) and res.fused_docs, f"(b) app.query: {res.to_dict()}")
+    numbers["b"] = {"s": t_q, "success": res.success, "answer_chars": len(res.answer),
+                    "fused_docs": len(res.fused_docs), "degraded": res.degraded,
+                    "warnings": res.warnings[:8], "llm_calls": client.call_count - calls0,
+                    "launches": d_q}
+    log(f"phase 13 (b) app.query with llm.backend local: {t_q:.2f} s, "
+        f"{json.dumps(numbers['b'], default=str)}")
+
+    # (c) the embedding backend: the card (its default) against the CPU
+    emb_card = TransformersEmbeddingBackend(str(dirs["bert"]), batch_size=2)
+    emb_cpu = TransformersEmbeddingBackend(str(dirs["bert"]), batch_size=2, device="cpu")
+    check(emb_card.device.type == card.type, emb_card.device)
+    got, ref = emb_card.embed(EMB_TEXTS), emb_cpu.embed(EMB_TEXTS)
+    gap = float(np.max(np.abs(got - ref)))
+    log(f"phase 13 (c) TransformersEmbeddingBackend on {emb_card.device} against the CPU: "
+        f"shape {got.shape}, max |diff| {gap:.3e} (tol rtol {EMB_RTOL}, atol {EMB_ATOL})")
+    check(np.allclose(got, ref, rtol=EMB_RTOL, atol=EMB_ATOL), f"(c) embeddings differ: {gap}")
+    numbers["c"] = {"max_abs_diff": gap, "shape": list(got.shape)}
+
+    # (d) the VLM captioner (PIL): the card against the CPU
+    if found["PIL"]:
+        from PIL import Image
+
+        from radiant_rag_tpu_torch.ingestion.image_captioner import HuggingFaceVLMCaptioner
+
+        try:
+            cap_card = HuggingFaceVLMCaptioner(str(dirs["vlm"]))
+        except ImportError as exc:  # a package the checkpoint's processor needs
+            numbers["d"] = {"raise": f"{type(exc).__name__}: {exc}"}
+            log(f"phase 13 (d) VLM captioner: it raises here, naming what is missing: "
+                f"{type(exc).__name__}: {' '.join(str(exc).split())}; not a pass of the "
+                "captioner")
+        else:
+            cap_cpu = HuggingFaceVLMCaptioner(str(dirs["vlm"]), device="cpu")
+            check(next(cap_card.model.parameters()).device.type == card.type, cap_card.device)
+            check(type(create_captioner(str(dirs["vlm"]))).__name__ == "HuggingFaceVLMCaptioner",
+                  "create_captioner did not take the checkpoint")
+            caps = []
+            for seed, size in ((0, (32, 32)), (1, (48, 20)), (2, (64, 64))):
+                arr = (np.random.default_rng(seed).random((size[1], size[0], 3)) * 255).astype(
+                    "uint8")
+                path = d / f"img_{seed}.png"
+                Image.fromarray(arr).save(path)
+                got_c, ref_c = cap_card.caption(str(path)), cap_cpu.caption(str(path))
+                check(got_c == ref_c, f"(d) caption {got_c!r} vs the CPU's {ref_c!r}")
+                caps.append(got_c)
+            numbers["d"] = {"captions": caps}
+            log(f"phase 13 (d) VLM captioner on the card: captions equal the CPU's: {caps}")
+    else:
+        log("phase 13 (d) VLM captioner: PIL is not installed here; not run")
+
+    # with transformers hidden, each backend names it
+    hidden = {k: sys.modules.pop(k) for k in list(sys.modules)
+              if k == "transformers" or k.startswith("transformers.")}
+    sys.modules["transformers"] = None
+    try:
+        numbers["raises"] = transformers_raises(d, "transformers hidden")
+    finally:
+        del sys.modules["transformers"]
+        sys.modules.update(hidden)
+    numbers["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log("phase 13 summary: " + json.dumps({"device": smi, **numbers}, default=str))
+    return launched
+
+
+def modes(argv) -> int:
+    """No arguments: the whole run (`main`). `--step-launches ROOT`: the
+    (1, 1) training step's launches of the package under ROOT;
+    `--cards`: phase 9 (d) alone; `--nccl-merge ADDR WORLD RANK`: one rank
+    of (d)'s NCCL merge. Each needs a card."""
+    if not argv:
+        return main()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if argv[0] == "--step-launches" and len(argv) == 2:
+        return step_launch_probe(argv[1])
+    if argv == ["--cards"]:
+        return cards_only()
+    if argv[0] == "--nccl-merge" and len(argv) == 4:
+        return nccl_merge_worker(argv[1], int(argv[2]), int(argv[3]))
+    print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+    return 2
+
+
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(modes(sys.argv[1:]))
     except Exception as exc:  # any failed phase: no result line
         import traceback
 

@@ -35,7 +35,9 @@ The CLI (`main`) prints answers and search hits through `ui/display.py`
 UI (`tui`, ui/tui.py).
 
 `RadiantTPU(device=None)` runs on CUDA and raises without a card; tests
-pass device="cpu".
+pass device="cpu". `train` runs on `create_mesh()` (every visible CUDA
+device on 'data', as the JAX app trains on its default mesh), or on the
+1 x 1 mesh of a device the app was built on by name.
 """
 
 from __future__ import annotations
@@ -82,6 +84,7 @@ class RadiantTPU:
         # PyTorch eager compiles nothing per shape, so there is no counterpart
         self.config = config or config_from_dict({})
         self.device = resolve_device(device)
+        self._named_device = device is not None  # train's mesh (module doc)
         self.device_lock = threading.RLock()  # module doc
         self.store = store if store is not None else create_vector_store(self.config,
                                                                          self.device)
@@ -341,11 +344,14 @@ class RadiantTPU:
     def train(self, steps: int = 100, batch_size: int = 32, learning_rate: float = 2e-5,
               checkpoint_dir: str = "", hard_negatives: int = 2,
               auto: bool = False) -> Dict[str, Any]:
-        """Fine-tune the embedder on the indexed corpus on the app's device
-        and make the result live: BM25-mined hard negatives from the app's
-        index, warmup + cosine LR (`parallel/data.train_embedder`), a
-        checkpoint in checkpoint_dir (default embedding.checkpoint_dir),
-        which a fresh process restores, then the serving encoder's params
+        """Fine-tune the embedder on the indexed corpus and make the result
+        live. It trains on `create_mesh()`, every visible CUDA device on
+        'data' (the batch rounded up to a multiple of them), or on the
+        1 x 1 mesh of the device the app was built on by name: BM25-mined
+        hard negatives from the app's index, warmup + cosine LR
+        (`parallel/data.train_embedder`), a checkpoint in checkpoint_dir
+        (default embedding.checkpoint_dir), which a fresh process
+        restores, then the serving encoder's params
         swapped (its embedding cache cleared), the query cache cleared and
         the fusion calibration invalidated, all under the device lock.
         The stored corpus keeps the vectors of the old encoder until it is
@@ -363,7 +369,8 @@ class RadiantTPU:
             learning_rate = 1e-4
             hard_negatives = max(hard_negatives, 2)
         metrics, params = train_embedder(
-            self.store, self.config.embedding, device=self.device, steps=steps,
+            self.store, self.config.embedding,
+            device=self.device if self._named_device else None, steps=steps,
             batch_size=batch_size, learning_rate=learning_rate,
             checkpoint_dir=checkpoint_dir or self.config.embedding.checkpoint_dir,
             bm25=self.bm25_index.index if hard_negatives > 0 else None,
@@ -679,7 +686,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("simple-query", help="minimal RAG (no agents)")
     p.add_argument("question")
 
-    p = sub.add_parser("train", help="fine-tune the embedder on the indexed corpus")
+    p = sub.add_parser("train", help="fine-tune the embedder on the indexed corpus "
+                       "(every visible card on the data axis)")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--lr", type=float, default=2e-5)

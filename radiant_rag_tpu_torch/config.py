@@ -125,8 +125,8 @@ class RetrievalConfig:
 class EmbeddingConfig:
     """Embedding model (bi-encoder)."""
 
-    backend: str = "jax"  # jax (the built-in encoder) | openai_compatible
-    model_name: str = "minilm-l12"
+    backend: str = "jax"  # jax (the built-in encoder) | openai_compatible | transformers
+    model_name: str = "minilm-l12"  # the non-jax backends' model (llm/model_backends.py)
     weights_path: str = ""  # local HF weights; empty: shipped artifact or init
     preset: str = "auto"  # auto | trainable-small | none (resolved by config_from_dict)
     dim: int = 384
@@ -241,12 +241,14 @@ class RerankConfig:
 class LLMConfig:
     """LLM chat backend."""
 
-    backend: str = "openai_compatible"  # openai_compatible | mock | local (ROADMAP A11 rest)
+    backend: str = "openai_compatible"  # openai_compatible | mock | local
     base_url: str = "http://localhost:11434/v1"
     api_key: str = "unused"
     model: str = "llama3.1"
-    model_path: str = ""  # read only by backend "local"
-    device: str = "cpu"  # read only by backend "local"
+    # backend "local": in-process transformers generation (llm/local_backend.py);
+    # model_path is a local weights dir (empty: `model` as a hub name)
+    model_path: str = ""
+    device: str = "cuda"  # cuda | cuda:<n> | cpu | auto; the JAX package's default is cpu
     temperature: float = 0.2
     max_tokens: int = 2048
     timeout_s: float = 120.0
@@ -479,10 +481,6 @@ class AppConfig:
 _SECTIONS = {f.name: f.default_factory for f in fields(AppConfig)}
 ENV_PREFIX = "RADIANT"
 _NEITHER = "read by neither package"
-_REST = "ROADMAP queue A item 11 (rest)"
-_REMOTE = f"only the non-jax backends (llm/model_backends.py) read it, {_REST}"
-_LOCAL_LLM = ("only llm.backend 'local' reads it, which waits for causal-LM weights in the "
-              f"repository, {_REST}")
 # Fields parsed for parity that the port has no behaviour for: a value
 # other than the default raises, with the reason. A section named by a
 # string has no behaviour in any field.
@@ -491,9 +489,7 @@ _NOT_PORTED = {
               "growth_factor": _NEITHER + " (the engine grows by CAPACITY_QUANTUM)",
               "graph_ef_construction": _NEITHER},
     "quantization": {"int8_on_disk_only": _NEITHER},
-    "embedding": {"backend": _REMOTE, "model_name": _REMOTE},
-    "cross_encoder": {"backend": _REMOTE, "model_name": _NEITHER},
-    "llm": {"model_path": _LOCAL_LLM, "device": _LOCAL_LLM},
+    "cross_encoder": {"model_name": _NEITHER},
     "agentic": {"simple_query_max_words": _NEITHER + " (the simple-query rule is fixed)"},
     "query": {"max_rewrites": _NEITHER},
     "ingestion": {"embed_batch_size": _NEITHER, "use_intelligent_chunking": _NEITHER,

@@ -210,11 +210,16 @@ def bulk_build(texts: Sequence[str], rows: Sequence[int]) -> Optional[NativeBM25
 # --------------------------------------------------------------------------- #
 
 def get_tok_lib() -> Optional[ctypes.CDLL]:
-    """The native tokenizer (compiled on first use); None without a compiler."""
+    """The native tokenizer (compiled on first use); None without a compiler
+    or when RADIANT_NO_NATIVE_TOKENIZER is set (the Python path then
+    tokenizes, as in the JAX package)."""
     global _tok_lib, _tok_failed
     with _lock:
         if _tok_lib is not None or _tok_failed:
             return _tok_lib
+        if os.environ.get("RADIANT_NO_NATIVE_TOKENIZER"):
+            _tok_failed = True
+            return None
         so = _compile(_TOK_SRC)
         if so is None:
             _tok_failed = True

@@ -6,9 +6,9 @@ ollama/vLLM/OpenAI endpoints). Implemented over urllib so no SDK is required;
 zero-egress environments use the mock backend (also the test fixture,
 replacing the reference's MagicMock LLMs, SURVEY.md §4).
 
-The port's copy of `radiant_rag_tpu/llm/backends.py`. `backend: local`
-(in-process causal-LM generation) raises: it waits for causal-LM weights
-in the repository (ROADMAP queue A item 11, rest).
+The port's copy of `radiant_rag_tpu/llm/backends.py`. `backend: local` is
+in-process causal-LM generation through `transformers`
+(`llm/local_backend.py`), on `llm.device` (the card by default).
 """
 
 from __future__ import annotations
@@ -25,11 +25,6 @@ from radiant_rag_tpu_torch.config import LLMConfig
 logger = logging.getLogger(__name__)
 
 Message = Dict[str, str]  # {"role": ..., "content": ...}
-
-LOCAL_BACKEND_NOT_PORTED = (
-    "llm.backend 'local' (in-process causal-LM generation) waits for causal-LM weights in "
-    "the repository: ROADMAP queue A item 11 (rest); use 'openai_compatible' or 'mock'")
-
 
 class LLMError(Exception):
     def __init__(self, message: str, status: Optional[int] = None) -> None:
@@ -198,7 +193,9 @@ def create_llm_backend(config: LLMConfig) -> BaseLLMBackend:
     if config.backend == "openai_compatible":
         return OpenAICompatibleLLMBackend(config)
     if config.backend == "local":
-        raise NotImplementedError(LOCAL_BACKEND_NOT_PORTED)
+        from radiant_rag_tpu_torch.llm.local_backend import LocalTransformersLLMBackend
+
+        return LocalTransformersLLMBackend(config)
     if config.backend == "mock":
         return MockLLMBackend()
     raise ValueError(f"unknown llm backend: {config.backend!r}")

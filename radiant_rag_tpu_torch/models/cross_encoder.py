@@ -16,9 +16,23 @@ from torch import nn
 
 from radiant_rag_tpu_torch import resolve_device, to_device
 from radiant_rag_tpu_torch.config import CrossEncoderConfig
-from radiant_rag_tpu_torch.models.bert import BertConfig, BertEncoder, dense, init_module
+from radiant_rag_tpu_torch.models.bert import (
+    BertConfig, BertEncoder, ParamTable, dense, encoder_forward, init_module, param_table,
+)
 from radiant_rag_tpu_torch.models.embedder import _batch_bucket, compute_dtype, pad_rows
 from radiant_rag_tpu_torch.models.tokenizer import load_tokenizer
+
+
+def cross_encoder_forward(P: ParamTable, devs: Sequence[torch.device], cfg: BertConfig,
+                          input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                          token_type_ids: torch.Tensor) -> torch.Tensor:
+    """`CrossEncoderModel`'s forward over a parameter table (as
+    `bert.encoder_forward`'s): (b,) float32 logits on devs[0]."""
+    hidden = encoder_forward(P, devs, cfg, input_ids, attention_mask, token_type_ids, "bert.")
+    pooled = torch.tanh(dense(P["pooler.weight"][0], P["pooler.bias"][0],
+                              hidden[:, 0, :].float(), torch.float32))
+    return dense(P["classifier.weight"][0], P["classifier.bias"][0], pooled,
+                 torch.float32)[:, 0]
 
 
 class CrossEncoderModel(nn.Module):
@@ -31,9 +45,8 @@ class CrossEncoderModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 token_type_ids: torch.Tensor) -> torch.Tensor:
-        hidden = self.bert(input_ids, attention_mask, token_type_ids)
-        pooled = torch.tanh(dense(self.pooler, hidden[:, 0, :].float(), torch.float32))
-        return dense(self.classifier, pooled, torch.float32)[:, 0]
+        return cross_encoder_forward(param_table(self), [self.pooler.weight.device], self.cfg,
+                                     input_ids, attention_mask, token_type_ids)
 
 
 class CrossEncoder:

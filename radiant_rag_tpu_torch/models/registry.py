@@ -7,6 +7,7 @@ port's Embedder and CrossEncoder on one device.
 
 from __future__ import annotations
 
+import logging
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -18,11 +19,26 @@ from radiant_rag_tpu_torch.models.cross_encoder import CrossEncoder
 from radiant_rag_tpu_torch.models.embedder import Embedder
 from radiant_rag_tpu_torch.utils.cache import EmbeddingCache
 
+logger = logging.getLogger(__name__)
+
+
+def warn_unserved_backends(cfg: AppConfig) -> None:
+    """embedding.backend and cross_encoder.backend take effect only through
+    `llm.model_backends`' factories; the app serves the built-in encoders
+    whatever they say, as the JAX package's app does. Say so where a config
+    names another backend."""
+    for section in ("embedding", "cross_encoder"):
+        backend = getattr(cfg, section).backend
+        if backend != "jax":
+            logger.warning("%s.backend %r takes effect only through llm.model_backends' "
+                           "factories: the app serves the built-in encoder", section, backend)
+
 
 class LocalNLPModels:
     def __init__(self, config: Optional[AppConfig] = None, embedder: Optional[Embedder] = None,
                  cross_encoder: Optional[CrossEncoder] = None, device=None) -> None:
         cfg = config or AppConfig()
+        warn_unserved_backends(cfg)
         # a given embedder sets the device; else device=None means CUDA
         self.device = embedder.device if embedder is not None else resolve_device(device)
         cache = EmbeddingCache(cfg.cache.embedding_cache_size)

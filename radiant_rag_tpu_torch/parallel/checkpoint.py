@@ -14,7 +14,9 @@ is whole (orbax's finalize does the same). It holds
               (learning rate, schedule steps),
 
 all read back with `np.load(allow_pickle=False)` and `json`: nothing is
-unpickled. The newest `max_to_keep` steps are kept.
+unpickled. The newest `max_to_keep` steps are kept. A state on a mesh is
+saved whole (its shards gathered, `TrainState.params` / `moments`), so a
+step written on one mesh restores into a state on any other.
 
 A step directory the JAX package's orbax manager wrote has no meta.json;
 `restore` raises `NotImplementedError` for it, naming the conversion

@@ -10,9 +10,13 @@ so one seed over the same corpus and BM25 index gives the same batches in
 both packages. `HybridSearcher.calibrate_fusion` makes its self-retrieval
 probes with the makers.
 
-One device: the JAX package rounds the batch up to its mesh's data axis,
-which is 1 here, so the port has no rounding. `device_lock` (the app's
-lock, where given) is taken around each BM25 mining search and each step.
+The trainers run on a ('data', 'model') mesh (`parallel/train.py`):
+`mesh=None` is `create_mesh()`, every visible CUDA device on 'data'; a
+named `device` is its 1 x 1 mesh. As in the JAX package the batch is
+rounded up to a multiple of the data axis: the bi-encoder's batch size
+(a sampler the caller passed in included), the cross-encoder's group
+count. `device_lock` (the app's lock, where given) is taken around each
+BM25 mining search and each step.
 """
 
 from __future__ import annotations
@@ -257,6 +261,7 @@ def train_embedder(
     store,
     embedding_config,
     device=None,
+    mesh=None,
     steps: int = 100,
     batch_size: int = 32,
     learning_rate: float = 2e-5,
@@ -276,30 +281,42 @@ def train_embedder(
     sampler: "Optional[ContrastivePairSampler]" = None,
     device_lock=None,
 ):
-    """Fine-tune the bi-encoder on the indexed corpus, on `device` (None:
-    CUDA). From a seeded init, or `init_params_tree` (a BertEncoder
-    state_dict); bm25 + hard_negatives > 0 mines lexically close
-    non-targets per query; lr_schedule turns on the warmup + cosine
-    schedule over `steps`. auto_stop makes `steps` a ceiling: training
-    stops once the in-batch accuracy's EMA has not risen by plateau_eps
-    within plateau_window steps (after min_steps). Saves the final state
+    """Fine-tune the bi-encoder on the indexed corpus on `mesh` (None:
+    every visible CUDA device on 'data'; or the 1 x 1 mesh of `device`),
+    the batch rounded up to a multiple of the data axis. From a seeded
+    init, or `init_params_tree` (a BertEncoder state_dict); bm25 +
+    hard_negatives > 0 mines lexically close non-targets per query;
+    lr_schedule turns on the warmup + cosine schedule over `steps`.
+    auto_stop makes `steps` a ceiling: training stops once the in-batch
+    accuracy's EMA has not risen by plateau_eps within plateau_window
+    steps (after min_steps). Saves the final state
     to checkpoint_dir when given. Returns the metrics (with steps_run, and
     under auto_stop stop_reason and accuracy_ema), and the trained
     state_dict too with return_params."""
     from radiant_rag_tpu_torch.models.bert import BertConfig
     from radiant_rag_tpu_torch.models.embedder import compute_dtype
     from radiant_rag_tpu_torch.models.tokenizer import load_tokenizer
-    from radiant_rag_tpu_torch.parallel.train import contrastive_train_step, make_train_state
+    from radiant_rag_tpu_torch.parallel.train import (
+        contrastive_train_step, make_train_state, train_mesh,
+    )
 
     cfg = embedding_config
     bert_cfg = BertConfig(
         vocab_size=cfg.vocab_size, hidden_size=cfg.dim, num_layers=cfg.num_layers,
         num_heads=cfg.num_heads, intermediate_size=cfg.hidden_dim,
         dtype=compute_dtype(cfg.dtype))
-    state = make_train_state(bert_cfg, learning_rate, seed=seed,
+    mesh = train_mesh(mesh, device)
+    # the batch splits over 'data': round it up to a multiple of the axis
+    n_data = mesh.shape[0]
+    if batch_size % n_data != 0:
+        adjusted = ((batch_size + n_data - 1) // n_data) * n_data
+        logger.info("batch_size %d not divisible by data axis %d; using %d",
+                    batch_size, n_data, adjusted)
+        batch_size = adjusted
+    state = make_train_state(bert_cfg, mesh, learning_rate, seed=seed,
                              schedule_steps=steps if lr_schedule else 0,
-                             init_params_tree=init_params_tree, device=device)
-    step_fn, place_batch = contrastive_train_step(device)
+                             init_params_tree=init_params_tree)
+    step_fn, place_batch = contrastive_train_step(mesh)
     if sampler is None:
         tokenizer = load_tokenizer(cfg.weights_path, cfg.vocab_size)
         sampler = ContrastivePairSampler.from_store(
@@ -451,6 +468,7 @@ def train_cross_encoder(
     texts: Sequence[str],
     bert_cfg=None,
     device=None,
+    mesh=None,
     steps: int = 2000,
     batch_size: int = 64,
     learning_rate: float = 5e-5,
@@ -473,9 +491,10 @@ def train_cross_encoder(
     loss: str = "listwise",
     device_lock=None,
 ):
-    """Train the cross-encoder reranker on the corpus texts, on `device`
-    (None: CUDA), with the bi-encoder's recipe: pseudo-query positives, BM25
-    hard negatives, optional augmentation, plateau auto-stop, the warmup +
+    """Train the cross-encoder reranker on the corpus texts on `mesh` (as
+    train_embedder's; the group count rounded up until the batch divides
+    the data axis), with the bi-encoder's recipe: pseudo-query positives,
+    BM25 hard negatives, optional augmentation, plateau auto-stop, the warmup +
     cosine schedule over `steps`. loss "listwise" (one of group per query
     block) or "pointwise". Returns the metrics, and the state_dict too
     with return_params."""
@@ -484,13 +503,14 @@ def train_cross_encoder(
     from radiant_rag_tpu_torch.models.bert import BertConfig
     from radiant_rag_tpu_torch.models.tokenizer import load_tokenizer
     from radiant_rag_tpu_torch.parallel.train import (
-        cross_encoder_train_step, make_ce_train_state,
+        cross_encoder_train_step, make_ce_train_state, train_mesh,
     )
 
     if bert_cfg is None:
         bert_cfg = BertConfig(vocab_size=vocab_size, dtype=torch.bfloat16)
-    state = make_ce_train_state(bert_cfg, learning_rate, seed=seed, schedule_steps=steps,
-                                device=device)
+    mesh = train_mesh(mesh, device)
+    n_data = mesh.shape[0]
+    state = make_ce_train_state(bert_cfg, mesh, learning_rate, seed=seed, schedule_steps=steps)
     if sampler is None:
         tokenizer = load_tokenizer("", bert_cfg.vocab_size)
         sampler = CrossEncoderPairSampler(
@@ -498,7 +518,12 @@ def train_cross_encoder(
             seed=seed, bm25=bm25, rows=rows, n_hard_negatives=hard_negatives,
             n_random_negatives=random_negatives, query_augment=query_augment,
             device_lock=device_lock)
-    step_fn, place_batch = cross_encoder_train_step(device, loss=loss, group=sampler.group)
+    # the sampler floors the batch to whole groups; add groups until the
+    # batch divides the data axis
+    while sampler.batch_size % n_data != 0:
+        sampler.n_groups += 1
+        sampler.batch_size = sampler.n_groups * sampler.group
+    step_fn, place_batch = cross_encoder_train_step(mesh, loss=loss, group=sampler.group)
     ckpt = None
     if checkpoint_dir:
         from radiant_rag_tpu_torch.parallel.checkpoint import TrainCheckpointer

@@ -544,7 +544,8 @@ def test_train_steps_on_card_equal_cpu(card, kind):
                     "labels": np.tile([1, 0, 0, 0], 4).astype(np.int32)} for _ in range(3)]
     runs = []
     for dev in ("cpu", card):
-        state = make(cfg, lr, schedule_steps=20, init_params_tree=init, device=dev)
+        state = make(cfg, learning_rate=lr, schedule_steps=20, init_params_tree=init,
+                     device=dev)
         step, place = build(dev)
         losses = []
         for b in batches:
@@ -697,3 +698,52 @@ def test_profiler_trace_on_card_names_the_kernels(card, tmp_path):
     assert any(e.get("name") == "scan.window" for e in trace["traceEvents"])
     stats = device_timer(lambda: ck.int8_scan_topk(codes, qi, mask, 40), iters=3)
     assert 0 < stats["min_ms"] <= stats["median_ms"] <= stats["max_ms"]
+
+
+@pytest.mark.parametrize("kind", ["contrastive", "ce_listwise"])
+def test_mesh_of_logical_shards_on_card_equals_one_by_one(card, kind):
+    """The dp x tp layout on the card: a (2, 2) mesh of cuda:0 (logical
+    shards) against the (1, 1) mesh, three float32 AdamW steps from the
+    same init and batches: losses within rtol 1e-5, params within 2e-5
+    but for the zero-gradient leaves (within steps x lr), as
+    tests/test_torch_parallel_train.py holds them on the CPU."""
+    from radiant_rag_tpu_torch.models.bert import BertConfig, BertEncoder, init_module
+    from radiant_rag_tpu_torch.models.cross_encoder import CrossEncoderModel
+    from radiant_rag_tpu_torch.parallel import train as tt
+    from radiant_rag_tpu_torch.parallel.mesh import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = BertConfig(vocab_size=300, hidden_size=64, num_layers=2, num_heads=4,
+                     intermediate_size=128, dtype=torch.float32)
+    lr, rng = 1e-3, np.random.default_rng(6)
+    if kind == "contrastive":
+        make, build = tt.make_train_state, tt.contrastive_train_step
+        init = init_module(BertEncoder(cfg), 3).state_dict()
+        batches = [{f"{s}_{n}": (rng.integers(1, 300, (r, 24)).astype(np.int32) if n == "ids"
+                                 else np.ones((r, 24), np.int32))
+                    for s, r in (("q", 8), ("d", 8), ("n", 16)) for n in ("ids", "mask")}
+                   for _ in range(3)]
+    else:
+        make = tt.make_ce_train_state
+        build = lambda mesh: tt.cross_encoder_train_step(mesh, group=4)  # noqa: E731
+        init = init_module(CrossEncoderModel(cfg), 3).state_dict()
+        batches = [{"ids": rng.integers(1, 300, (16, 32)).astype(np.int32),
+                    "mask": np.ones((16, 32), np.int32),
+                    "type_ids": np.repeat([[0] * 12 + [1] * 20], 16, 0).astype(np.int32),
+                    "labels": np.tile([1, 0, 0, 0], 4).astype(np.int32)} for _ in range(3)]
+    runs = []
+    for shape in ((1, 1), (2, 2)):
+        mesh = create_mesh(data=shape[0], model=shape[1], devices=[card] * 4)
+        state = make(cfg, mesh, lr, schedule_steps=20, init_params_tree=init)
+        step, place = build(mesh)
+        losses = []
+        for b in batches:
+            state, met = step(state, place(b))
+            losses.append(met["loss"].item())
+        runs.append((losses, {k: v.cpu() for k, v in state.params.items()}))
+    np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-5)
+    for name, ref in runs[0][1].items():
+        zero = name.endswith("attention.key.bias") or (kind == "ce_listwise"
+                                                       and name == "classifier.bias")
+        torch.testing.assert_close(runs[1][1][name], ref, rtol=0,
+                                   atol=3 * lr if zero else 2e-5, msg=name)

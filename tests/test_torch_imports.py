@@ -36,7 +36,9 @@ new = {"config", "index.base", "index.doc", "index.docstore", "index.factory", "
        "agents.lang_profiles", "agents.language", "ingestion.web_crawler",
        "ingestion.github_crawler", "agents.web_search", "agents.chunking",
        "utils.metrics_export", "ui", "ui.display", "ui.reports", "ui.tui_model", "ui.tui",
-       "utils.profiling", "agents.registry", "agents.agent_template"}
+       "utils.profiling", "agents.registry", "agents.agent_template", "llm.local_backend",
+       "llm.model_backends", "ingestion.image_captioner", "utils.model_manager",
+       "parallel.tensor_parallel"}
 assert {"radiant_rag_tpu_torch." + m for m in new} <= set(names), names
 import torch
 assert not torch.cuda.is_available()
@@ -52,6 +54,9 @@ from radiant_rag_tpu_torch.app import RadiantTPU
 from radiant_rag_tpu_torch.models.bert import BertConfig
 from radiant_rag_tpu_torch.parallel import data, train
 from radiant_rag_tpu_torch.parallel.mesh import create_mesh
+from radiant_rag_tpu_torch.llm.model_backends import TransformersEmbeddingBackend
+from radiant_rag_tpu_torch.ingestion.image_captioner import HuggingFaceVLMCaptioner
+assert config_from_dict({}).llm.device == "cuda"
 tiny = BertConfig(vocab_size=64, hidden_size=8, num_layers=1, num_heads=2, intermediate_size=16)
 for make in (lambda: train.make_train_state(tiny), lambda: train.make_ce_train_state(tiny),
              lambda: train.contrastive_train_step(), lambda: train.cross_encoder_train_step(),
@@ -62,7 +67,9 @@ for make in (lambda: train.make_train_state(tiny), lambda: train.make_ce_train_s
              lambda: create_vector_store(config_from_dict({"index": {"backend": "sharded"}})),
              lambda: PersistentBM25Index(None), lambda: Embedder(), lambda: CrossEncoder(),
              lambda: LocalNLPModels(), lambda: Embedder(device="cuda"),
-             lambda: RadiantTPU(), lambda: RadiantTPU(config_from_dict({}), device="cuda")):
+             lambda: RadiantTPU(), lambda: RadiantTPU(config_from_dict({}), device="cuda"),
+             lambda: data.train_embedder(None, config_from_dict({}).embedding, steps=2),
+             lambda: TransformersEmbeddingBackend("model"), lambda: HuggingFaceVLMCaptioner(".")):
     try:
         make()
     except RuntimeError as exc:
@@ -74,6 +81,20 @@ from radiant_rag_tpu_torch.models.device_rerank import DeviceReranker
 assert DeviceReranker(CrossEncoder(device="cpu")).device == torch.device("cpu")
 print("ok", len(names))
 """
+
+
+def jax_section_as_the_port_reads_it(ref, name, data):
+    """The JAX package's section `name` as a dict, with the one default the
+    port does not share: llm.device is "cuda" (the JAX package's "cpu")
+    unless the file sets it, since the port's entry points run on the card
+    unless asked for the CPU."""
+    import dataclasses
+
+    want = dataclasses.asdict(getattr(ref, name))
+    if name == "llm" and "device" not in data.get("llm", {}):
+        assert want["device"] == "cpu"
+        want["device"] = "cuda"
+    return want
 
 
 def test_port_imports_no_jax_and_needs_cuda_by_default():
@@ -166,9 +187,6 @@ def test_embedding_preset_resolves_every_field_as_jax_load_config(data, tmp_path
 
 
 @pytest.mark.parametrize("section,key,value,reason", [
-    ("embedding", "backend", "openai_compatible", "queue A item 11"),
-    ("embedding", "model_name", "bge-small", "queue A item 11"),
-    ("cross_encoder", "backend", "llm", "queue A item 11"),
     ("cross_encoder", "model_name", "other", "neither package"),
 ])
 def test_model_fields_without_a_behaviour_raise(section, key, value, reason):
@@ -185,13 +203,18 @@ def test_model_fields_without_a_behaviour_raise(section, key, value, reason):
     ("web_search", "trigger_keywords", "breaking"),
     ("web_crawler", "max_depth", 3),
     ("github", "token", "secret"),
+    ("embedding", "backend", "openai_compatible"),
+    ("embedding", "backend", "transformers"),
+    ("embedding", "model_name", "bge-small"),
+    ("cross_encoder", "backend", "llm"),
 ])
 def test_ported_fields_parse_equal_to_jax(tmp_path, monkeypatch, section, key, value):
     """Fields that raised until their layer was ported (the metrics
-    exporter, the language phase, web search and the crawlers): the port's
-    section equals the JAX package's for the same file, with the value set.
-    What each does is held against the JAX package in
-    tests/test_torch_{observability,language,web}.py."""
+    exporter, the language phase, web search and the crawlers, the
+    embedding and reranking backends): the port's section equals the JAX
+    package's for the same file, with the value set. What each does is
+    held against the JAX package in
+    tests/test_torch_{observability,language,web,model_backends}.py."""
     import dataclasses
 
     yaml = pytest.importorskip("yaml")
@@ -207,6 +230,34 @@ def test_ported_fields_parse_equal_to_jax(tmp_path, monkeypatch, section, key, v
     ref, got = jcfg.load_config(str(path)), tcfg.config_from_dict(data)
     assert dataclasses.asdict(getattr(got, section)) == dataclasses.asdict(getattr(ref, section))
     assert getattr(getattr(got, section), key) != getattr(getattr(tcfg.AppConfig(), section), key)
+
+
+@pytest.mark.parametrize("fields", [
+    {"model_path": "/models/llama"}, {"device": "cuda"}, {"device": "cpu"},
+    {"device": "auto", "model_path": "/m"}, {"backend": "local"},
+])
+def test_local_llm_fields_parse_as_jax_with_the_card_by_default(tmp_path, monkeypatch, fields):
+    """llm.model_path and llm.device raised until the local backend was
+    ported; they parse as the JAX package parses them, except that
+    llm.device defaults to "cuda" where the JAX package's default is
+    "cpu" (the port's entry points run on the card unless asked)."""
+    import dataclasses
+
+    yaml = pytest.importorskip("yaml")
+    from radiant_rag_tpu import config as jcfg
+    from radiant_rag_tpu_torch import config as tcfg
+
+    for env in list(os.environ):
+        if env.startswith("RADIANT_"):
+            monkeypatch.delenv(env)
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump({"llm": fields}))
+    want = dataclasses.asdict(jcfg.load_config(str(path)).llm)
+    got = tcfg.config_from_dict({"llm": fields}).llm
+    if "device" not in fields:
+        assert want["device"] == "cpu" and got.device == "cuda"
+        want["device"] = "cuda"
+    assert dataclasses.asdict(got) == want
 
 
 @pytest.mark.parametrize("data,env", [
@@ -246,7 +297,7 @@ def test_sections_and_env_overrides_resolve_as_jax_load_config(data, env, tmp_pa
     ref, got = jcfg.load_config(str(path)), tcfg.config_from_dict(data)
     for f in dataclasses.fields(got):
         assert dataclasses.asdict(getattr(got, f.name)) == \
-            dataclasses.asdict(getattr(ref, f.name)), (f.name, data, env)
+            jax_section_as_the_port_reads_it(ref, f.name, data), (f.name, data, env)
 
 
 def test_fields_this_slice_reads_no_longer_raise():
@@ -288,7 +339,7 @@ def test_example_configs_parse_equal_to_jax_on_every_section(name, monkeypatch):
     assert len(dataclasses.fields(got)) == 33 and set(data) <= set(tcfg._SECTIONS)
     for f in dataclasses.fields(got):
         assert dataclasses.asdict(getattr(got, f.name)) == \
-            dataclasses.asdict(getattr(ref, f.name)), f.name
+            jax_section_as_the_port_reads_it(ref, f.name, data), f.name
     if name == "config.example.yaml":
         assert set(data) == set(tcfg._SECTIONS) and got.mesh.data_axis == 1
     if "quality" in name:
@@ -301,8 +352,6 @@ def test_example_configs_parse_equal_to_jax_on_every_section(name, monkeypatch):
     ("report", "default_format", "html", "neither package.*suffix"),
     ("mesh", "shard_corpus", True, "neither package"),
     ("mesh", "dtype_compute", "float32", "neither package"),
-    ("llm", "model_path", "/models/llama", "causal-LM weights"),
-    ("llm", "device", "cuda", "causal-LM weights"),
     ("agentic", "simple_query_max_words", 6, "neither package"),
     ("query", "max_rewrites", 1, "neither package"),
 ])

@@ -139,7 +139,10 @@ def test_stream_retries_only_before_the_first_token_like_jax():
 
 
 def test_backend_factory_matches_jax_and_local_waits_for_weights():
-    for backend in ("openai_compatible", "mock", "nope"):
+    """The factory dispatches as the JAX package's, "local" included: it
+    builds the in-process transformers backend (lazily: its weights load
+    at the first chat, tests/test_torch_local_llm.py), as does the client."""
+    for backend in ("openai_compatible", "mock", "nope", "local"):
         def run(cfg, b, Client, backend=backend):
             try:
                 return type(b.create_llm_backend(cfg.LLMConfig(backend=backend))).__name__
@@ -147,10 +150,12 @@ def test_backend_factory_matches_jax_and_local_waits_for_weights():
                 return str(exc)
 
         _both(run)
-    with pytest.raises(NotImplementedError, match="causal-LM weights.*item 11 \\(rest\\)"):
-        tb.create_llm_backend(tcfg.LLMConfig(backend="local"))
-    with pytest.raises(NotImplementedError, match="causal-LM weights"):
-        LLMClient(tcfg.LLMConfig(backend="local"))
+    from radiant_rag_tpu_torch.llm.local_backend import LocalTransformersLLMBackend
+
+    local = tb.create_llm_backend(tcfg.LLMConfig(backend="local", model_path="/w"))
+    assert isinstance(local, LocalTransformersLLMBackend) and local._model is None
+    assert isinstance(LLMClient(tcfg.LLMConfig(backend="local")).backend,
+                      LocalTransformersLLMBackend)
 
 
 class _Stub(BaseHTTPRequestHandler):

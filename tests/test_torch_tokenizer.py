@@ -117,3 +117,23 @@ def test_buckets_and_load_tokenizer(tmp_path):
     assert wp.vocab_size == len(WP_WORDS)
     with pytest.raises(ValueError):
         ttok.HashTokenizer(100)
+
+
+def test_no_native_tokenizer_switch_takes_the_python_path_as_jax(monkeypatch):
+    """RADIANT_NO_NATIVE_TOKENIZER turns the native bridge off in both
+    packages (read at its first load); the ids stay the JAX package's."""
+    from radiant_rag_tpu.index import native as jnative
+
+    monkeypatch.setenv("RADIANT_NO_NATIVE_TOKENIZER", "1")
+    for mod in (native, jnative):
+        monkeypatch.setattr(mod, "_tok_lib", None)
+        monkeypatch.setattr(mod, "_tok_failed", False)
+    assert native.get_tok_lib() is None and jnative.get_tok_lib() is None
+    assert native._tok_failed
+    texts = _texts(4)
+    h, j = ttok.HashTokenizer(8192), jtok.HashTokenizer(8192)
+    assert h.tokenize_ids_batch(texts, 16) == j.tokenize_ids_batch(texts, 16)
+    wp = ttok.WordPieceTokenizer(_wp_vocab())
+    assert wp._native is None
+    assert wp.tokenize_ids_batch(texts, 16) == \
+        jtok.WordPieceTokenizer(_wp_vocab()).tokenize_ids_batch(texts, 16)

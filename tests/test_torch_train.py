@@ -100,12 +100,12 @@ def _jax_state(kind, schedule_steps=SCHEDULE):
 def _port_state(kind, jparams, schedule_steps=SCHEDULE):
     cfg = BertConfig(dtype=torch.float32, **TINY)
     if kind == "contrastive":
-        state = ttrain.make_train_state(cfg, LR, schedule_steps=schedule_steps, device="cpu",
+        state = ttrain.make_train_state(cfg, learning_rate=LR, schedule_steps=schedule_steps, device="cpu",
                                         init_params_tree=bert_params_from_jax(_np(jparams)))
         step, place = ttrain.contrastive_train_step("cpu")
     else:
         state = ttrain.make_ce_train_state(
-            cfg, LR, schedule_steps=schedule_steps, device="cpu",
+            cfg, learning_rate=LR, schedule_steps=schedule_steps, device="cpu",
             init_params_tree=cross_encoder_params_from_jax(_np(jparams)))
         step, place = ttrain.cross_encoder_train_step("cpu", loss=kind[3:], group=GROUP)
     return state, step, place
@@ -132,13 +132,13 @@ def _jax_loss(kind, params, batch, grad=False):
     return _jax_jitted(kind, grad)(params, {k: jnp.asarray(v) for k, v in batch.items()})
 
 
-def _port_loss(kind, model, batch):
-    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+def _port_loss(kind, state, batch):
+    rows = [{k: torch.from_numpy(v) for k, v in batch.items()}]  # the (1, 1) mesh's one row
     if kind == "contrastive":
-        return ttrain.info_nce_loss(model, tb)
+        return ttrain.info_nce_loss(state, rows)
     if kind == "ce_pointwise":
-        return ttrain.ce_pointwise_loss(model, tb)
-    return ttrain.ce_listwise_loss(model, tb, GROUP)
+        return ttrain.ce_pointwise_loss(state, rows)
+    return ttrain.ce_listwise_loss(state, rows, GROUP)
 
 
 def _zero_grad(key, kind):
@@ -173,14 +173,14 @@ def test_losses_match_jax(kind, hard):
     batch = _batch(1, kind, hard)
     jloss, jmet = _jax_loss(kind, jstate.params, batch)
     with torch.no_grad():
-        tloss, tmet = _port_loss(kind, tstate.model, batch)
+        tloss, tmet = _port_loss(kind, tstate, batch)
     np.testing.assert_allclose(tloss.item(), float(jloss), **LOSS)
     for key in ("loss", "accuracy"):
         np.testing.assert_allclose(tmet[key].item(), float(jmet[key]), **LOSS)
     if kind == "contrastive" and hard:  # the negatives widen the q -> d softmax
         nohard = {k: v for k, v in batch.items() if not k.startswith("n_")}
         with torch.no_grad():
-            assert _port_loss(kind, tstate.model, nohard)[0].item() != pytest.approx(tloss.item())
+            assert _port_loss(kind, tstate, nohard)[0].item() != pytest.approx(tloss.item())
 
 
 def test_info_nce_accuracy_takes_the_first_index_on_ties():
@@ -194,7 +194,7 @@ def test_info_nce_accuracy_takes_the_first_index_on_ties():
         batch[f"{side}_mask"][:] = batch[f"{side}_mask"][0]
     _, jmet = _jax_loss("contrastive", jstate.params, batch)
     with torch.no_grad():
-        _, tmet = _port_loss("contrastive", tstate.model, batch)
+        _, tmet = _port_loss("contrastive", tstate, batch)
     assert tmet["accuracy"].item() == float(jmet["accuracy"]) == pytest.approx(1 / 6)
 
 
@@ -204,10 +204,9 @@ def test_gradients_match_jax(kind):
     tstate, _, _ = _port_state(kind, jstate.params)
     batch = _batch(3, kind)
     jgrads = _jax_loss(kind, jstate.params, batch, grad=True)
-    loss, _ = _port_loss(kind, tstate.model, batch)
+    loss, _ = _port_loss(kind, tstate, batch)
     loss.backward()
-    got = params_to_flat(tstate.model, {n: p.grad for n, p in
-                                        tstate.model.named_parameters()})
+    got = params_to_flat(tstate.model, tstate.grads)
     ref = _flatten(_unwrap(_np(jgrads)))
     assert set(got) == set(ref)
     for key in ref:
@@ -281,7 +280,8 @@ def test_learning_rate_set_before_each_step():
     """The param group's lr during each update is the schedule at the
     count before it, and the optimizer is optax.adamw's."""
     cfg = BertConfig(dtype=torch.float32, **TINY)
-    state = ttrain.make_train_state(cfg, LR, schedule_steps=SCHEDULE, device="cpu")
+    state = ttrain.make_train_state(cfg, learning_rate=LR, schedule_steps=SCHEDULE,
+                                    device="cpu")
     group = state.optimizer.param_groups
     assert len(group) == 1 and len(group[0]["params"]) == len(list(state.model.parameters()))
     assert (group[0]["betas"], group[0]["eps"], group[0]["weight_decay"]) == \
@@ -294,13 +294,13 @@ def test_learning_rate_set_before_each_step():
         state, _ = step(state, place(_batch(30 + i, "contrastive")))
     assert seen == [ttrain.lr_at(c, LR, SCHEDULE) for c in range(4)]
     with pytest.raises(ValueError, match="no cosine decay"):  # optax refuses it too
-        ttrain.make_train_state(cfg, LR, schedule_steps=1, device="cpu")
+        ttrain.make_train_state(cfg, learning_rate=LR, schedule_steps=1, device="cpu")
 
 
 def test_bf16_step_keeps_float32_params_and_is_finite():
     """bfloat16 compute: the params and both moments stay float32."""
-    state = ttrain.make_train_state(BertConfig(dtype=torch.bfloat16, **TINY), LR, seed=1,
-                                    device="cpu")
+    state = ttrain.make_train_state(BertConfig(dtype=torch.bfloat16, **TINY), learning_rate=LR,
+                                    seed=1, device="cpu")
     step, place = ttrain.contrastive_train_step("cpu")
     state, met = step(state, place(_batch(5, "contrastive")))
     assert np.isfinite(met["loss"].item())

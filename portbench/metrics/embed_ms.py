@@ -1,0 +1,8 @@
+"""embed_ms: device milliseconds per request of the kernels launched under
+the harness's "embed" span (profiler correlation ids)."""
+
+from pbcore.readers import span_ms
+
+
+def read(run):
+    return span_ms(run, "embed")

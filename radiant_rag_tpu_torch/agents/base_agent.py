@@ -16,7 +16,10 @@ searches share), which raises any failure there as a `DeviceStageError`;
 the caller of `RAGOrchestrator.run`. Every other failure (an `LLMError`,
 JSON that does not parse) degrades exactly as in the JAX package.
 `metrics_sink` is the exporter the orchestrator builds under `metrics.*`
-(`utils/metrics_export.py`).
+(`utils/metrics_export.py`). The port exports every run the agent
+executes, inside an agent span: a failed, degraded or raised run counts
+an error as well as its metrics (the JAX package records successful and
+degraded runs only, outside any span).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import numpy as np
 
 from radiant_rag_tpu_torch.agents.base import AgentContext
 from radiant_rag_tpu_torch.utils.logging import StructuredLogger
+from radiant_rag_tpu_torch.utils.metrics_export import guarded
 
 logger = logging.getLogger(__name__)
 
@@ -163,6 +167,18 @@ class BaseAgent:
             metrics.ended = time.time()
             return AgentResult(data=None, success=True, status=AgentStatus.SKIPPED,
                                metrics=metrics)
+        sink = BaseAgent.metrics_sink
+        with guarded(None if sink is None else lambda: sink.trace_agent(self.name, metrics)):
+            try:
+                result = self._run_enabled(ctx, metrics, **kwargs)
+            except DeviceStageError:
+                self._export(sink, metrics, failed=True)
+                raise
+            self._export(sink, metrics, failed=bool(result.error))
+        return result
+
+    def _run_enabled(self, ctx: AgentContext, metrics: AgentMetrics,
+                     **kwargs: Any) -> AgentResult:
         self._runs += 1
         warnings: List[str] = []
         try:
@@ -193,13 +209,20 @@ class BaseAgent:
                 )
         metrics.ended = time.time()
         self._total_ms += metrics.duration_ms
-        if BaseAgent.metrics_sink is not None:
-            try:
-                BaseAgent.metrics_sink.record_agent(metrics)
-            except Exception:  # export must never break the pipeline
-                pass
         return AgentResult(data=data, success=success, status=status, error=error,
                            warnings=warnings, metrics=metrics)
+
+    def _export(self, sink, metrics: AgentMetrics, failed: bool) -> None:
+        """A finished run to the exporter: an error if it failed or
+        degraded, then its metrics, as any run's."""
+        if sink is None:
+            return
+        try:
+            if failed:
+                sink.record_error(self.name)
+            sink.record_agent(metrics)
+        except Exception:  # export must never break the pipeline
+            pass
 
     def execute(self, ctx: AgentContext, **kwargs: Any) -> Any:
         """Run and unwrap, raising on failure (reference `base_agent.py:438`)."""

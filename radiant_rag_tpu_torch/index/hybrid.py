@@ -39,6 +39,7 @@ from radiant_rag_tpu_torch.ops.fusion import (
     calibrated_leg_weights, rrf_fuse, score_fuse, weighted_rrf_fuse,
 )
 from radiant_rag_tpu_torch.parallel.data import make_paraphrase_query, make_pseudo_query
+from radiant_rag_tpu_torch.utils.profiling import annotate
 
 Result = Dict[str, Tuple[np.ndarray, np.ndarray]]
 
@@ -413,13 +414,51 @@ class HybridSearcher:
                 return np.full((b, k), -1e30, np.float32), np.full((b, k), -1, np.int64)
             res = {"dense": empty(dense_k), "bm25": empty(bm25_k), "fused": empty(fused_k)}
             return res if fetch else (None, lambda: res)
-        self.bm25._finalize_csr()
-        max_b = self.max_query_bucket()  # also runs bm25.plan_hbm
-        if _qdev is not None and b > max_b:  # oversized: the host chunks below
-            queries_dense, _qdev = _qdev[:b].float().cpu().numpy(), None
-        args = (dense_k, bm25_k, fused_k, rrf_k, mode, rescore_multiplier, level_code,
-                lang_code, bm25_mode, fusion, select)
-        if b > max_b:  # chunk oversized batches (no pipelining across chunks)
+        with annotate("hybrid.prep"):
+            self.bm25._finalize_csr()
+            max_b = self.max_query_bucket()  # also runs bm25.plan_hbm
+            if b <= max_b:
+                bm = self.bm25
+                q_tids_list = bm.query_tids(queries_text)  # tokenize once per batch
+                if bm.sketch_dim <= 0:
+                    bm25_mode = "pages"
+                elif bm25_mode == "auto":
+                    bm25_mode = ("pages" if bm.routes_pages(queries_text, q_tids_list,
+                                                            num_docs=eng.capacity)
+                                 else "sketch")
+                num_docs = eng.capacity  # bm25 doc lengths sized to match exactly
+                dk = min(dense_k, eng.capacity)
+                bk = min(bm25_k, num_docs)
+                pool = 0
+                if fused_depth and fused_depth > 0:
+                    pool = min(int(fused_depth), eng.capacity, num_docs)
+                    if pool <= max(dk, bk):
+                        pool = 0  # legs already at least this deep
+                dk_eff, bk_eff = (max(dk, pool), max(bk, pool)) if pool else (dk, bk)
+                fk = min(fused_k, dk_eff + bk_eff)
+                kc = min(max(dk_eff, int(round(dk_eff * rescore_multiplier))), eng.capacity)
+
+                dev = eng.device
+                if _qdev is not None:  # used as it is, in f32 (module doc)
+                    bq = eng._bucket_of(b, max_b)
+                    if bm25_mode == "sketch" and tuple(_qdev.shape) != (bq, eng.dim):
+                        raise ValueError(
+                            f"_qdev shape {tuple(_qdev.shape)} != bucket ({bq}, {eng.dim}); "
+                            "pad with Embedder.embed_device(texts, pad_to=bucket)")
+                    qdev = torch.nn.functional.pad(_qdev[:b].to(dev, torch.float32),
+                                                   (0, 0, 0, bq - b))
+                    qvalid = torch.arange(bq, device=dev) < b
+                else:
+                    qhost = np.asarray(queries_dense, np.float32)
+                    if bm25_mode == "sketch":
+                        qhost = qhost.astype(np.float16).astype(np.float32)  # see module doc
+                    qdev, qvalid, _ = eng._bucket_queries(qhost, max_b)
+                    bq = qdev.shape[0]
+        if b > max_b:  # chunk oversized batches (no pipelining across chunks), each
+            if _qdev is not None:  # with its own spans; the host chunks the queries
+                queries_dense = _qdev[:b].float().cpu().numpy()
+            args = (dense_k, bm25_k, fused_k, rrf_k, mode, rescore_multiplier, level_code,
+                    lang_code, bm25_mode, fusion, select)
             parts = [self.search_rows(queries_dense[s:s + max_b],
                                       list(queries_text[s:s + max_b]), *args,
                                       fused_depth=fused_depth)
@@ -429,88 +468,61 @@ class HybridSearcher:
                    for name in ("dense", "bm25", "fused")}
             return res if fetch else (None, lambda: res)
 
-        bm = self.bm25
-        q_tids_list = bm.query_tids(queries_text)  # tokenize once per batch
-        if bm.sketch_dim <= 0:
-            bm25_mode = "pages"
-        elif bm25_mode == "auto":
-            bm25_mode = ("pages" if bm.routes_pages(queries_text, q_tids_list,
-                                                    num_docs=eng.capacity)
-                         else "sketch")
-        num_docs = eng.capacity  # bm25 doc lengths sized to match exactly
-        dk = min(dense_k, eng.capacity)
-        bk = min(bm25_k, num_docs)
-        pool = 0
-        if fused_depth and fused_depth > 0:
-            pool = min(int(fused_depth), eng.capacity, num_docs)
-            if pool <= max(dk, bk):
-                pool = 0  # legs already at least this deep
-        dk_eff, bk_eff = (max(dk, pool), max(bk, pool)) if pool else (dk, bk)
-        fk = min(fused_k, dk_eff + bk_eff)
-        kc = min(max(dk_eff, int(round(dk_eff * rescore_multiplier))), eng.capacity)
+        with annotate("hybrid.dense"):
+            mask = row_mask(eng.valid, eng.level, eng.lang, level_code, lang_code)
+            dense_s, dense_i = _dense_stage(eng, mask, qdev, qvalid, dk_eff, kc, mode, select)
 
-        dev = eng.device
-        if _qdev is not None:  # used as it is, in f32 (module doc)
-            bq = eng._bucket_of(b, max_b)
-            if bm25_mode == "sketch" and tuple(_qdev.shape) != (bq, eng.dim):
-                raise ValueError(f"_qdev shape {tuple(_qdev.shape)} != bucket ({bq}, {eng.dim}); "
-                                 "pad with Embedder.embed_device(texts, pad_to=bucket)")
-            qdev = torch.nn.functional.pad(_qdev[:b].to(dev, torch.float32), (0, 0, 0, bq - b))
-            qvalid = torch.arange(bq, device=dev) < b
-        else:
-            qhost = np.asarray(queries_dense, np.float32)
+        with annotate("hybrid.bm25"):
+            dl = bm._device_doc_lens(num_docs)
+            if bm._dl_size != num_docs:
+                raise RuntimeError(f"bm25 row space {bm._dl_size} != engine capacity {num_docs}")
+            avgdl = to_device(np.asarray(bm.avgdl, np.float32), dev)
             if bm25_mode == "sketch":
-                qhost = qhost.astype(np.float16).astype(np.float32)  # see module doc
-            qdev, qvalid, _ = eng._bucket_queries(qhost, max_b)
-            bq = qdev.shape[0]
-        mask = row_mask(eng.valid, eng.level, eng.lang, level_code, lang_code)
-        dense_s, dense_i = _dense_stage(eng, mask, qdev, qvalid, dk_eff, kc, mode, select)
-
-        dl = bm._device_doc_lens(num_docs)
-        if bm._dl_size != num_docs:
-            raise RuntimeError(f"bm25 row space {bm._dl_size} != engine capacity {num_docs}")
-        avgdl = to_device(np.asarray(bm.avgdl, np.float32), dev)
-        if bm25_mode == "sketch":
-            bm.ensure_sketch(num_docs)
-            bm.ensure_doc_major(num_docs)
-            pad = bq - b
-            qind = np.pad(bm.make_query_indicator(queries_text, q_tids_list), ((0, pad), (0, 0)))
-            q_tids, q_idfs = bm.make_query_terms(queries_text, tids=q_tids_list)
-            q_tids = np.pad(q_tids, ((0, pad), (0, 0)), constant_values=-1)
-            q_idfs = np.pad(q_idfs, ((0, pad), (0, 0)))
-            qind_t = to_device(qind, dev)
-            bm_kc = min(max(bk_eff, int(round(bk_eff * rescore_multiplier))), num_docs)
-            if bm_kc > bk_eff:  # exact rescore of the sketch candidates
-                _s1, cand = bm25_sketch_select(bm._sketch, bm._sketch_scale, qind_t, mask,
-                                               bm_kc, select)
-                cand = sim.sort_candidates_by_row(cand)
-                exact = bm25_candidate_rescore(
-                    bm._dm_tids, bm._dm_tfs, dl, avgdl, cand,
-                    to_device(q_tids, dev), to_device(q_idfs, dev),
-                    bm.k1, bm.b)
-                bm_s, sel = sim.topk_first(exact, bk_eff)
-                bm_i = torch.where(bm_s > 0.0, cand.gather(1, sel), -1)
+                bm.ensure_sketch(num_docs)
+                bm.ensure_doc_major(num_docs)
+                with annotate("hybrid.bm25.prep"):
+                    pad = bq - b
+                    qind = np.pad(bm.make_query_indicator(queries_text, q_tids_list),
+                                  ((0, pad), (0, 0)))
+                    q_tids, q_idfs = bm.make_query_terms(queries_text, tids=q_tids_list)
+                    q_tids = np.pad(q_tids, ((0, pad), (0, 0)), constant_values=-1)
+                    q_idfs = np.pad(q_idfs, ((0, pad), (0, 0)))
+                qind_t = to_device(qind, dev)
+                bm_kc = min(max(bk_eff, int(round(bk_eff * rescore_multiplier))), num_docs)
+                if bm_kc > bk_eff:  # exact rescore of the sketch candidates
+                    _s1, cand = bm25_sketch_select(bm._sketch, bm._sketch_scale, qind_t, mask,
+                                                   bm_kc, select)
+                    cand = sim.sort_candidates_by_row(cand)
+                    exact = bm25_candidate_rescore(
+                        bm._dm_tids, bm._dm_tfs, dl, avgdl, cand,
+                        to_device(q_tids, dev), to_device(q_idfs, dev),
+                        bm.k1, bm.b)
+                    bm_s, sel = sim.topk_first(exact, bk_eff)
+                    bm_i = torch.where(bm_s > 0.0, cand.gather(1, sel), -1)
+                else:
+                    bm_s, bm_i = bm25_sketch_select(bm._sketch, bm._sketch_scale, qind_t, mask,
+                                                    bk_eff, select)
             else:
-                bm_s, bm_i = bm25_sketch_select(bm._sketch, bm._sketch_scale, qind_t, mask,
-                                                bk_eff, select)
-        else:
-            pages = {key: to_device(v, dev)
-                     for key, v in bm.make_pages(queries_text, q_tids_list).items()}
-            scores = bm25_pages_scores(
-                bm._dev_post_rows, bm._dev_post_tf, pages["start"], pages["len"],
-                pages["qidx"], pages["idf"], dl, avgdl, mask, bq, num_docs, bm.k1, bm.b)
-            bm_s, bm_i = sim.topk_first(scores, bk_eff)
-            bm_i = torch.where(bm_s > 0.0, bm_i, -1)
-        bm_i = torch.where(qvalid[:, None], bm_i.to(torch.int32), -1)
+                with annotate("hybrid.bm25.prep"):
+                    pages = bm.make_pages(queries_text, q_tids_list)
+                pages = {key: to_device(v, dev) for key, v in pages.items()}
+                scores = bm25_pages_scores(
+                    bm._dev_post_rows, bm._dev_post_tf, pages["start"], pages["len"],
+                    pages["qidx"], pages["idf"], dl, avgdl, mask, bq, num_docs, bm.k1, bm.b)
+                bm_s, bm_i = sim.topk_first(scores, bk_eff)
+                bm_i = torch.where(bm_s > 0.0, bm_i, -1)
+            bm_i = torch.where(qvalid[:, None], bm_i.to(torch.int32), -1)
 
-        leg_w = to_device(np.asarray(self.leg_weights, np.float32), dev)
-        fused_s, fused_i = _fuse_stage(dense_i, bm_i, leg_w, fk, rrf_k, fusion, dense_s, bm_s)
-        packed = torch.cat([
-            dense_s[:, :dk], dense_i[:, :dk].to(torch.float32),
-            bm_s[:, :bk], bm_i[:, :bk].to(torch.float32),
-            fused_s, fused_i.to(torch.float32)], dim=1)  # rows exact in f32 below 2^24
-        if not fetch:
-            return packed, self._fetch_later(packed[:b], dk, bk, fk)
+        with annotate("hybrid.fuse"):
+            leg_w = to_device(np.asarray(self.leg_weights, np.float32), dev)
+            fused_s, fused_i = _fuse_stage(dense_i, bm_i, leg_w, fk, rrf_k, fusion,
+                                           dense_s, bm_s)
+            packed = torch.cat([
+                dense_s[:, :dk], dense_i[:, :dk].to(torch.float32),
+                bm_s[:, :bk], bm_i[:, :bk].to(torch.float32),
+                fused_s, fused_i.to(torch.float32)], dim=1)  # rows exact in f32 below 2^24
+            if not fetch:
+                return packed, self._fetch_later(packed[:b], dk, bk, fk)
         return self._unpack(packed[:b].cpu().numpy(), dk, bk, fk)
 
     def _fetch_later(self, packed: torch.Tensor, dk: int, bk: int, fk: int

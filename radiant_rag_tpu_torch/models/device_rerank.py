@@ -26,6 +26,7 @@ import torch
 
 from radiant_rag_tpu_torch import to_device
 from radiant_rag_tpu_torch.models.tokenizer import CLS_ID, PAD_ID, SEP_ID
+from radiant_rag_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -158,15 +159,18 @@ class DeviceReranker:
             raise RuntimeError("build_table() first")
         rows = np.atleast_2d(np.asarray(rows))
         b, k_cand = rows.shape
-        if prior_scores is None:
-            prior = np.zeros((b, k_cand), np.float32)
-            prior_weight = 0.0
-        else:
-            prior = np.nan_to_num(np.asarray(prior_scores, np.float32), neginf=0.0, posinf=0.0)
-        q_ids, q_lens = self._tokenize(q_texts, self.q_len, np.int32)
         dev = self.device
-        rows_t = to_device(rows.astype(np.int64), dev)
-        seq, mask, types = self.pack_pairs(to_device(q_ids, dev), to_device(q_lens, dev), rows_t)
+        with annotate("rerank.prep"):
+            if prior_scores is None:
+                prior = np.zeros((b, k_cand), np.float32)
+                prior_weight = 0.0
+            else:
+                prior = np.nan_to_num(np.asarray(prior_scores, np.float32),
+                                      neginf=0.0, posinf=0.0)
+            q_ids, q_lens = self._tokenize(q_texts, self.q_len, np.int32)
+            rows_t = to_device(rows.astype(np.int64), dev)
+            q_ids_t, q_lens_t = to_device(q_ids, dev), to_device(q_lens, dev)
+        seq, mask, types = self.pack_pairs(q_ids_t, q_lens_t, rows_t)
         logits = self._scores(seq, mask, types)
         out = self._order(logits, rows_t, to_device(prior, dev), float(prior_weight), top_k)
 

@@ -24,6 +24,7 @@ from radiant_rag_tpu_torch.models.bert import (
 )
 from radiant_rag_tpu_torch.models.tokenizer import load_tokenizer
 from radiant_rag_tpu_torch.utils.cache import EmbeddingCache
+from radiant_rag_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -158,8 +159,10 @@ class Embedder:
         mask -> guarded mean pool -> eps-guarded normalize)."""
         if pad_to < len(texts):
             raise ValueError(f"pad_to {pad_to} < batch {len(texts)}")
-        arrays = self.tokenizer.encode_batch(list(texts), self.config.max_seq_len)
-        return self._forward(*pad_rows(arrays, pad_to))
+        with annotate("embed.prep"):
+            arrays = pad_rows(self.tokenizer.encode_batch(list(texts), self.config.max_seq_len),
+                              pad_to)
+        return self._forward(*arrays)
 
     def embed(self, texts: Sequence[str]) -> np.ndarray:
         """Cache-aware batch embedding."""

@@ -71,6 +71,7 @@ from radiant_rag_tpu_torch.index.hybrid import (
     HybridSearcher, embed_queries_device, resolve_fused_depth,
 )
 from radiant_rag_tpu_torch.utils.metrics import RunMetrics
+from radiant_rag_tpu_torch.utils.metrics_export import UnifiedMetrics, guarded
 
 logger = logging.getLogger(__name__)
 
@@ -144,8 +145,6 @@ class RAGOrchestrator:
         cfg = config
         if metrics_exporter is None and (cfg.metrics.prometheus_enabled
                                          or cfg.metrics.otel_enabled):
-            from radiant_rag_tpu_torch.utils.metrics_export import UnifiedMetrics
-
             # raises ImportError naming the package an enabled exporter lacks
             metrics_exporter = UnifiedMetrics.create(
                 prometheus_enabled=cfg.metrics.prometheus_enabled,
@@ -285,7 +284,16 @@ class RAGOrchestrator:
             token_sink: Optional[Any] = None) -> PipelineResult:
         """`progress(event, step_name, info)`: an optional live observer
         called at every phase boundary; `token_sink(chunk)`: an optional
-        live generation-token callback (both drive /query/stream)."""
+        live generation-token callback (both drive /query/stream). The run
+        holds the exporter's active-runs gauge."""
+        exporter = self.metrics_exporter
+        with guarded(None if exporter is None else exporter.track_run):
+            return self._run(query, conversation_id, conversation_history, progress,
+                             token_sink)
+
+    def _run(self, query: str, conversation_id: str,
+             conversation_history: Optional[List[Dict[str, str]]],
+             progress: Optional[Any], token_sink: Optional[Any]) -> PipelineResult:
         ctx = new_agent_context(query)
         if token_sink is not None:
             ctx.extras["token_sink"] = token_sink

@@ -9,7 +9,11 @@ gauge, and optionally `prometheus_client`'s HTTP endpoint),
 set), the `UnifiedMetrics` facade over both and the process-wide
 `get_metrics_exporter`. The orchestrator builds one when `metrics.
 prometheus_enabled` or `metrics.otel_enabled` is set and hands it to
-`BaseAgent.metrics_sink`, through which every agent run is recorded.
+`BaseAgent.metrics_sink`, through which every agent run is recorded: each
+runs inside an agent span (`trace_agent`), a failed or degraded run counts
+an error (`record_error`), and each `RAGOrchestrator.run` holds the
+active-runs gauge (`track_run`). A failure of an exporter never breaks a
+run (`guarded`).
 
 One deviation: the JAX exporters log and record nothing when their
 library is missing. The port raises `ImportError` naming the package, as
@@ -21,9 +25,12 @@ of the same namespace in one process (a `ValueError`, raised as there).
 
 from __future__ import annotations
 
+import logging
 import threading
 from contextlib import contextmanager
-from typing import Any, Iterator, Optional
+from typing import Any, Callable, ContextManager, Iterator, Optional
+
+logger = logging.getLogger(__name__)
 
 _LATENCY_BUCKETS = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
 
@@ -131,6 +138,18 @@ class UnifiedMetrics:
         if self.prometheus is not None:
             self.prometheus.record_agent(metrics)
 
+    def record_error(self, agent_name: str) -> None:
+        if self.prometheus is not None:
+            self.prometheus.record_error(agent_name)
+
+    @contextmanager
+    def track_run(self) -> Iterator[None]:
+        if self.prometheus is not None:
+            with self.prometheus.track_run():
+                yield
+        else:
+            yield
+
     @contextmanager
     def trace_agent(self, agent_name: str, metrics=None) -> Iterator[Any]:
         if self.otel is not None:
@@ -138,6 +157,36 @@ class UnifiedMetrics:
                 yield span
         else:
             yield None
+
+
+@contextmanager
+def guarded(open_: Optional[Callable[[], ContextManager]]) -> Iterator[None]:
+    """Run the body inside the exporter's context `open_()` (None: none).
+    A failure of the exporter on entry or exit is logged and dropped; one
+    of the body is raised as it is."""
+    if open_ is None:
+        yield
+        return
+    try:
+        cm = open_()
+        cm.__enter__()
+    except Exception:  # export must never break the pipeline
+        logger.warning("metrics export failed on entry", exc_info=True)
+        yield
+        return
+    try:
+        yield
+    except BaseException as exc:
+        try:
+            cm.__exit__(type(exc), exc, exc.__traceback__)
+        except Exception as exit_exc:  # the body's own exception is re-raised below
+            if exit_exc is not exc:
+                logger.warning("metrics export failed on exit", exc_info=True)
+        raise
+    try:
+        cm.__exit__(None, None, None)
+    except Exception:
+        logger.warning("metrics export failed on exit", exc_info=True)
 
 
 _global: Optional[UnifiedMetrics] = None

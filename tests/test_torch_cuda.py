@@ -700,6 +700,38 @@ def test_profiler_trace_on_card_names_the_kernels(card, tmp_path):
     assert 0 < stats["min_ms"] <= stats["median_ms"] <= stats["max_ms"]
 
 
+def test_program_spans_add_no_device_rows_on_card(card):
+    """A program span (`annotate`) is a host range only: the CUDA trace
+    holds no device row of its name, where a `record_function` user
+    annotation gets one spanning its kernels, and a reader that counts
+    device rows as kernels would count it. The scan launched inside the
+    span is found by its launch time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from radiant_rag_tpu_torch.utils.profiling import annotate
+
+    codes, qi, mask = _inputs(4, 20_000, 384, 64, -127, 128, card)
+    ck.int8_scan_topk(codes, qi, mask, 40)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with annotate("hybrid.dense"):
+            ck.int8_scan_topk(codes, qi, mask, 40)
+        with record_function("user.range"):
+            ck.int8_scan_topk(codes, qi, mask, 40)
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    on_card = {e.name() for e in events if e.device_type() == cuda}
+    assert "hybrid.dense" not in on_card and "user.range" in on_card, sorted(on_card)[:20]
+    (span,) = [e for e in events if e.name() == "hybrid.dense" and e.device_type() == cpu]
+    s0, s1 = span.start_ns(), span.start_ns() + span.duration_ns()
+    launched = {e.correlation_id(): e.start_ns() for e in events
+                if e.device_type() == cpu and e.name().startswith("cu")}
+    scans = [launched.get(e.correlation_id(), -1) for e in events
+             if e.device_type() == cuda and "scan_topk" in e.name()]
+    assert sum(s0 <= t <= s1 for t in scans) >= 1, (s0, s1, scans)
+
+
 @pytest.mark.parametrize("kind", ["contrastive", "ce_listwise"])
 def test_mesh_of_logical_shards_on_card_equals_one_by_one(card, kind):
     """The dp x tp layout on the card: a (2, 2) mesh of cuda:0 (logical

@@ -15,24 +15,40 @@ installed both record the same spans. Profiling mirrors tests/test_utils.py: the
 `torch.profiler` trace holds the annotations and the operators under their
 names, `device_timer` copies the first output to the host before the clock
 stops, and a profiler that fails to start raises.
+
+The port's own (no JAX counterpart): the exporters' repaired paths (errors
+and the active-runs gauge through the facade, agent spans, failed runs,
+exporter failures that never break a run), and the program's spans:
+`annotate` is a shared null context with no profiler running and an
+operator range (no user annotation) under one; the searcher, embedder and
+reranker open their stage spans in order around unchanged results;
+`gc_spans` wraps full collections only and leaves `gc.callbacks` as found.
 """
 
+import gc
 import itertools
 import json
 import sys
 import types
 from contextlib import contextmanager
 
+import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from radiant_rag_tpu.agents.base_agent import AgentMetrics as JaxAgentMetrics
 from radiant_rag_tpu.agents.base_agent import BaseAgent as JaxBaseAgent
 from radiant_rag_tpu.utils import metrics_export as jexp
 from radiant_rag_tpu.utils import profiling as jprof
-from radiant_rag_tpu_torch.agents.base_agent import AgentMetrics, BaseAgent
+from radiant_rag_tpu_torch.agents.base import new_agent_context
+from radiant_rag_tpu_torch.agents.base_agent import (
+    AgentMetrics, AgentStatus, BaseAgent, DeviceStageError,
+)
 from radiant_rag_tpu_torch.utils import metrics_export as texp
 from radiant_rag_tpu_torch.utils import profiling as tprof
+
+from _torch_parity import assert_result_match
 
 prometheus_client = pytest.importorskip("prometheus_client")
 REGISTRY = prometheus_client.REGISTRY
@@ -308,3 +324,307 @@ def test_a_profiler_that_fails_to_start_raises(monkeypatch, tmp_path):
         with tprof.profiler_trace(str(tmp_path / "x")):
             ran.append(1)
     assert ran == []
+
+
+# ------------------------------------------- the exporters' repaired paths
+def test_unified_facade_forwards_errors_and_runs(exporters):
+    (_jx, tx), (_jn, tn) = exporters()
+    um = texp.UnifiedMetrics(prometheus=tx)
+    um.record_error("probe")
+    um.record_error("probe")
+    with um.track_run():
+        inside = REGISTRY.get_sample_value(f"{tn}_active_runs")
+    assert (inside, samples(tn, "probe")["agent_errors_total"],
+            REGISTRY.get_sample_value(f"{tn}_active_runs")) == (1.0, 2.0, 0.0)
+    bare = texp.UnifiedMetrics()  # no exporter: both are no-ops
+    bare.record_error("probe")
+    with bare.track_run():
+        pass
+
+
+class _Sink:
+    """A metrics sink that logs each call in order; `broken` names the calls
+    that raise."""
+
+    def __init__(self, broken=()):
+        self.calls, self.broken = [], set(broken)
+
+    def _log(self, call):
+        self.calls.append(call)
+        if call in self.broken:
+            raise RuntimeError(f"exporter {call} broken")
+
+    def record_agent(self, metrics):
+        self._log(f"agent {metrics.agent_name} {metrics.ended is not None}")
+
+    def record_error(self, agent_name):
+        self._log(f"error {agent_name}")
+
+    @contextmanager
+    def trace_agent(self, agent_name, metrics=None):
+        self._log("span enter")
+        try:
+            yield None
+        finally:
+            self._log("span exit")
+
+    @contextmanager
+    def track_run(self):
+        self._log("run enter")
+        try:
+            yield
+        finally:
+            self._log("run exit")
+
+
+class _Probe(BaseAgent):
+    name = "probe"
+
+    def __init__(self, fail=None, fallback=False):
+        super().__init__()
+        self.fail, self.fallback = fail, fallback
+
+    def _execute(self, ctx, **kwargs):
+        if self.fail is not None:
+            raise self.fail
+        return "data"
+
+    def _on_error(self, ctx, exc, **kwargs):
+        if self.fallback:
+            return "fallback"
+        raise exc
+
+
+@pytest.mark.parametrize("case", ["success", "degraded", "failed", "device"])
+def test_every_agent_run_is_exported_inside_its_span(monkeypatch, case):
+    """A run inside the sink's agent span; a failed, degraded or raised run
+    counts an error before its metrics (the failed run's were dropped)."""
+    sink = _Sink()
+    monkeypatch.setattr(BaseAgent, "metrics_sink", sink)
+    fail = {"success": None, "degraded": ValueError("bad json"), "failed": ValueError("bad"),
+            "device": DeviceStageError("scan: boom")}[case]
+    agent = _Probe(fail=fail, fallback=case == "degraded")
+    ctx = new_agent_context("q")
+    if case == "device":
+        with pytest.raises(DeviceStageError, match="boom"):
+            agent.run(ctx)
+    else:
+        status = agent.run(ctx).status
+        assert status == {"success": AgentStatus.SUCCESS, "degraded": AgentStatus.PARTIAL,
+                          "failed": AgentStatus.FAILED}[case]
+    error = [] if case == "success" else ["error probe"]
+    assert sink.calls == ["span enter", *error, "agent probe True", "span exit"]
+    sink.calls.clear()
+    agent.enabled = False  # a skipped agent exports nothing
+    assert agent.run(ctx).status == AgentStatus.SKIPPED and sink.calls == []
+
+
+@pytest.mark.parametrize("broken", ["span enter", "span exit", "agent probe True",
+                                    "run enter", "run exit"])
+def test_exporter_failures_never_break_a_run(monkeypatch, broken):
+    from radiant_rag_tpu_torch.utils.metrics_export import guarded
+
+    sink = _Sink(broken=[broken])
+    monkeypatch.setattr(BaseAgent, "metrics_sink", sink)
+    assert _Probe().run(new_agent_context("q")).data == "data"
+    with guarded(sink.track_run):
+        ran = True
+    assert ran
+    # the body's own failure is raised as it is, whatever the exporter does
+    with pytest.raises(DeviceStageError, match="boom"):
+        _Probe(fail=DeviceStageError("scan: boom")).run(new_agent_context("q"))
+    with pytest.raises(KeyError, match="body"):
+        with guarded(sink.track_run):
+            raise KeyError("body")
+
+
+def test_orchestrator_run_holds_the_active_runs_gauge(stacks, monkeypatch):
+    from radiant_rag_tpu_torch.orchestrator import RAGOrchestrator
+
+    from _torch_agentic_world import llms, replace_sections
+
+    monkeypatch.setattr(BaseAgent, "metrics_sink", None)
+    ns = f"radiant_obs_runs_{next(_NAMES)}"
+    exporter = texp.UnifiedMetrics(prometheus=texp.PrometheusMetricsExporter(namespace=ns))
+    cfg, store, bm25, models = stacks["t"]
+    cfg = replace_sections(cfg, strategy_memory={"enabled": False})
+    seen = []
+
+    def progress(event, step, info):
+        seen.append(REGISTRY.get_sample_value(f"{ns}_active_runs"))
+
+    try:
+        orch = RAGOrchestrator(cfg, store, bm25, models, llms()[1], metrics_exporter=exporter)
+        assert orch.run("How do mitochondria produce the energy of the cell?",
+                        progress=progress).success
+        after = REGISTRY.get_sample_value(f"{ns}_active_runs")
+    finally:
+        unregister(exporter.prometheus)
+    assert seen and set(seen) == {1.0} and after == 0.0
+
+
+# ------------------------------------------------------- the program's spans
+STAGES = ("embed.prep", "hybrid.prep", "hybrid.dense", "hybrid.bm25", "hybrid.bm25.prep",
+          "hybrid.fuse", "rerank.prep")
+
+
+def _spans(prof, names):
+    """(name, start_ns, end_ns) of the named host ranges of a finished
+    profile, by start (an enclosing range before the ranges it holds)."""
+    out = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.name() in names and e.device_type() == torch.autograd.DeviceType.CPU]
+    return sorted(out, key=lambda s: (s[1], -s[2]))
+
+
+def test_annotate_is_one_flag_check_without_a_profiler(monkeypatch):
+    """No profiler: the shared null context, and no range is made; under
+    one: a range per span, an operator range, not a user annotation (a
+    user annotation gets a device row of its own under CUDA)."""
+    made = []
+
+    def counting(real):
+        def make(name, *a):
+            made.append(name)
+            return real(name, *a)
+        return make
+
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast",
+                        counting(torch._C._profiler._RecordFunctionFast))
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        counting(torch.profiler.record_function))
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        counting(torch.autograd.profiler.record_function))
+    assert not torch._C._autograd._profiler_enabled()
+    span = tprof.annotate("hybrid.dense")
+    assert span is tprof.annotate("embed.prep")
+    with span:
+        with tprof.annotate("hybrid.fuse"):
+            pass
+    assert made == []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tprof.annotate("hybrid.dense"):
+            with tprof.annotate("hybrid.fuse"):
+                torch.ones(4) + 1
+    assert made == ["hybrid.dense", "hybrid.fuse"]
+    events = [e for e in prof.profiler.kineto_results.events() if e.name() in STAGES]
+    assert sorted(e.name() for e in events) == ["hybrid.dense", "hybrid.fuse"]
+    assert not any(e.is_user_annotation() for e in events)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    """A 500-doc searcher with a seeded 1-layer embedder and cross-encoder,
+    the port alone, on the CPU."""
+    from radiant_rag_tpu_torch.config import CrossEncoderConfig, EmbeddingConfig
+    from radiant_rag_tpu_torch.index.bm25 import BM25Index
+    from radiant_rag_tpu_torch.index.engine import DeviceVectorIndex
+    from radiant_rag_tpu_torch.index.hybrid import HybridSearcher
+    from radiant_rag_tpu_torch.models.cross_encoder import CrossEncoder
+    from radiant_rag_tpu_torch.models.device_rerank import DeviceReranker
+    from radiant_rag_tpu_torch.models.embedder import Embedder
+
+    n, d = 500, 32
+    rng = np.random.default_rng(17)
+    texts = [" ".join(f"w{t}" for t in row) for row in rng.zipf(1.3, (n, 16)) % 500]
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    eng = DeviceVectorIndex(d, initial_capacity=n, device="cpu")
+    eng.append(vecs, np.zeros(n, np.int8), np.zeros(n, np.int32), np.full(n, 16, np.float32))
+    bm = BM25Index(sketch_dim=128, device="cpu")
+    bm.bulk_build(list(range(n)), texts)
+    emb = Embedder(EmbeddingConfig(preset="none", dim=d, num_layers=1, num_heads=4,
+                                   hidden_dim=64, vocab_size=1024, max_seq_len=32,
+                                   batch_size=64, dtype="float32", checkpoint_dir=""),
+                   seed=2, device="cpu")
+    ce = CrossEncoder(CrossEncoderConfig(dim=d, num_layers=1, num_heads=4, hidden_dim=64,
+                                         vocab_size=1024, max_seq_len=64, dtype="float32"),
+                      seed=3, device="cpu")
+    reranker = DeviceReranker(ce, pair_chunk=256)
+    reranker.build_table(texts)
+    qidx = rng.integers(0, n, 6)
+    q = vecs[qidx] + 0.2 * rng.standard_normal((6, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return {"searcher": HybridSearcher(eng, bm), "embedder": emb, "reranker": reranker,
+            "q": q, "qt": [" ".join(texts[i].split()[:5]) for i in qidx]}
+
+
+@pytest.mark.parametrize("bm25_mode", ["sketch", "pages"])
+def test_search_rows_opens_its_stage_spans_in_order(tiny, tmp_path, bm25_mode):
+    searcher, q, qt = tiny["searcher"], tiny["q"], tiny["qt"]
+    kw = dict(mode="int8", bm25_mode=bm25_mode, fused_depth=20)
+    plain = searcher.search_rows(q, qt, **kw)
+    with tprof.profiler_trace(str(tmp_path / "tr")) as prof:
+        traced = searcher.search_rows(q, qt, **kw)
+    spans = _spans(prof, STAGES)
+    assert [n for n, _, _ in spans] == ["hybrid.prep", "hybrid.dense", "hybrid.bm25",
+                                        "hybrid.bm25.prep", "hybrid.fuse"]
+    (_, *prep), (_, *dense), (_, *bm25), (_, *bm25_prep), (_, *fuse) = spans
+    assert prep[1] <= dense[0] and dense[1] <= bm25[0] and bm25[1] <= fuse[0]
+    assert bm25[0] <= bm25_prep[0] and bm25_prep[1] <= bm25[1]
+    if bm25_mode == "pages":  # its scatter-add order is not fixed: two untraced calls
+        assert_result_match(plain, traced, "traced pages")  # differ in the last bit too
+        return
+    for leg in plain:
+        np.testing.assert_array_equal(traced[leg][1], plain[leg][1])
+        np.testing.assert_array_equal(traced[leg][0], plain[leg][0])
+
+
+def test_chunked_batches_keep_the_spans_per_chunk(tiny, tmp_path):
+    searcher, q, qt = tiny["searcher"], tiny["q"], tiny["qt"]
+    eng = searcher.engine
+    saved = eng.usable_bytes
+    try:  # shrink the gate to 4-query batches: 6 queries run as 2 chunks
+        eng.usable_bytes = (eng.resident_bytes()
+                            + searcher.bm25.device_bytes_projected(eng.capacity)
+                            + 4 * eng.capacity * 24)
+        assert searcher.max_query_bucket() == 4
+        with tprof.profiler_trace(str(tmp_path / "tr")) as prof:
+            searcher.search_rows(q, qt, mode="int8", bm25_mode="sketch")
+    finally:
+        eng.usable_bytes = saved
+    names = [n for n, _, _ in _spans(prof, STAGES)]
+    one = ["hybrid.prep", "hybrid.dense", "hybrid.bm25", "hybrid.bm25.prep", "hybrid.fuse"]
+    assert names == ["hybrid.prep"] + one + one  # the whole batch's gate, then each chunk
+
+
+def test_embed_device_and_rerank_rows_open_their_prep_spans(tiny, tmp_path):
+    emb, reranker, qt = tiny["embedder"], tiny["reranker"], tiny["qt"]
+    rows = tiny["searcher"].search_rows(tiny["q"], qt, mode="int8")["fused"][1]
+    plain = emb.embed_device(qt, pad_to=8), reranker.rerank_rows(qt, rows, top_k=5)
+    with tprof.profiler_trace(str(tmp_path / "tr")) as prof:
+        traced = emb.embed_device(qt, pad_to=8), reranker.rerank_rows(qt, rows, top_k=5)
+    assert [n for n, _, _ in _spans(prof, STAGES)] == ["embed.prep", "rerank.prep"]
+    torch.testing.assert_close(traced[0], plain[0], rtol=0, atol=0)
+    for got, ref in zip(traced[1], plain[1]):
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_gc_spans_wrap_full_collections_only():
+    before = list(gc.callbacks)
+    with tprof.gc_spans():  # no profiler running: no hook
+        assert gc.callbacks == before
+    automatic = gc.isenabled()
+    gc.disable()  # no collection but the test's own
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with tprof.gc_spans():
+                assert len(gc.callbacks) == len(before) + 1
+                gc.collect(0)
+                gc.collect(1)
+                with tprof.annotate("t.before"):
+                    pass
+                gc.collect()
+                with tprof.annotate("t.after"):
+                    pass
+            assert gc.callbacks == before
+            with pytest.raises(RuntimeError, match="body"):
+                with tprof.gc_spans():
+                    raise RuntimeError("body")
+            assert gc.callbacks == before
+    finally:
+        if automatic:
+            gc.enable()
+    spans = _spans(prof, ("gc", "t.before", "t.after"))
+    assert [n for n, _, _ in spans] == ["t.before", "gc", "t.after"]
+    assert spans[0][2] <= spans[1][1] < spans[1][2] <= spans[2][1]

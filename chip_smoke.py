@@ -154,6 +154,7 @@ of the repository, or when any phase fails.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
 import logging
 import os
@@ -223,6 +224,10 @@ def logit_tol(ref) -> float:
 
 KERNEL_STEMS = ("blockmax2", "hamming", "int8_scan_topk", "int8_scores")  # csrc/<stem>.cu
 PALLAS = "radiant_rag_tpu/ops/pallas_kernels.py"
+RESCORE = "bm25_rescore_topk"  # the BM25 sketch route's stage 2; ports no TPU kernel
+# (kernel, L, k, B) + a path's tag -> the rescore's kernel row, built by
+# main_path on the first inputs a main path gave the kernel at that shape
+RESCORE_ROWS = {}
 KERNEL_SOURCES = {  # name -> (source, the TPU kernel it replaces)
     "int8_scan_topk": ("int8_scan_topk.cu", f"{PALLAS}:315"),
     "blockmax2": ("blockmax2.cu", f"{PALLAS}:269"),
@@ -230,6 +235,7 @@ KERNEL_SOURCES = {  # name -> (source, the TPU kernel it replaces)
     "hamming_scores": ("hamming.cu", f"{PALLAS}:42"),
     "hamming_scores_t": ("hamming.cu", f"{PALLAS}:117"),
     "int8_scores": ("int8_scores.cu", f"{PALLAS}:77"),
+    RESCORE: ("bm25_rescore_topk.cu", "none"),
 }
 
 
@@ -280,15 +286,18 @@ def bound(moved_bytes: float, ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def same(out, ref) -> float:
-    """Kernel output vs plain output, exactly (integer work); returns the
-    max abs error of the first output (0.0)."""
+def same(out, ref, rtol: float = 0.0) -> float:
+    """Kernel output vs plain output, exactly (integer work), or with
+    `rtol` > 0 float outputs within rtol of the plain ones and the others
+    exactly; returns the max abs error of the first output."""
     import torch
 
     out = out if isinstance(out, tuple) else (out,)
     ref = ref if isinstance(ref, tuple) else (ref,)
     for a, b in zip(out, ref):
-        if not torch.equal(a, b):
+        close = (torch.allclose(a, b, rtol=rtol, atol=0.0) if rtol and a.is_floating_point()
+                 else torch.equal(a, b))
+        if not close:
             bad = int((a != b).reshape(a.shape[0], -1).any(dim=1).sum()) if a.numel() else 0
             raise AssertionError(f"differs from the plain version in {bad} query rows")
     return float((out[0].float() - ref[0].float()).abs().max()) if out[0].numel() else 0.0
@@ -305,10 +314,12 @@ def check_kernel_pair(name, kernel, plain, args) -> float:
         raise AssertionError(f"{name}: {exc}") from None
 
 
-def kernel_row(name, label, kernel, plain, args, library, moved, ops, key, library_mm=None):
+def kernel_row(name, label, kernel, plain, args, library, moved, ops, key, library_mm=None,
+               rtol=0.0):
     """One kernel at one shape: exact agreement with its plain version on
-    the same inputs, the kernel's, the plain version's and the library
-    call's times, and the bound (operations at the int8 tensor-core peak).
+    the same inputs (float outputs within `rtol` where it is > 0), the
+    kernel's, the plain version's and the library call's times, and the
+    bound (operations at the int8 tensor-core peak).
     Launches made here are comparisons, not main-path launches (the counts
     are reset before each main path); `key` is the shape's key in
     `cuda_kernels.launches_by_shape`, whose main-path count the row gets.
@@ -323,7 +334,7 @@ def kernel_row(name, label, kernel, plain, args, library, moved, ops, key, libra
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     try:
-        err = same(out, ref)
+        err = same(out, ref, rtol)
     except AssertionError as exc:
         raise AssertionError(f"{name} [{label}]: {exc}") from None
     del out, ref
@@ -339,9 +350,57 @@ def kernel_row(name, label, kernel, plain, args, library, moved, ops, key, libra
     if library_mm is not None:
         row["library_mm_ms"] = cuda_ms(library_mm, reps=1)
         mm = f", library product alone {row['library_mm_ms']:.3f}"
+    agree = f"floats within rtol {rtol}, the rest exact" if rtol else "exact"
     log(f"kernel {name} [{label}]: {ms:.3f} ms (plain {plain_ms:.3f}, library {lib_ms:.3f}{mm}, "
-        f"bound {b_ms:.3f} by {b_by}), exact")
+        f"bound {b_ms:.3f} by {b_by}), {agree}")
     return row
+
+
+class RescoreTap:
+    """Inside the block `cuda_kernels.bm25_rescore_topk` is this object: it
+    keeps the arguments of the first card call at each launch shape,
+    (bm25_rescore_topk, L, k, B), and calls the wrapper. The wrapper counts
+    its launches through its module name, so `launches` reads and writes
+    the wrapper's own count."""
+
+    __name__ = RESCORE
+
+    def __init__(self, ck):
+        self.ck, self.fn, self.first = ck, ck.bm25_rescore_topk, {}
+        self.sig = inspect.signature(self.fn)
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, n: setattr(self.fn, "launches", n))
+
+    def __call__(self, *a, **kw):
+        bound = self.sig.bind(*a, **kw)
+        bound.apply_defaults()
+        args = tuple(bound.arguments.values())
+        if args[4].is_cuda:
+            self.first.setdefault((RESCORE, args[0].shape[1], args[7], args[4].shape[0]), args)
+        return self.fn(*a, **kw)
+
+    def __enter__(self):
+        self.ck.bm25_rescore_topk = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ck.bm25_rescore_topk = self.fn
+
+
+def rescore_row(ck, fn, args, key):
+    """A bm25_rescore_topk row on a main path's own inputs: rows equal to
+    the plain version's, scores within rtol 1e-6 (the kernel sums the term
+    slots in another order); the library yardstick is that plain version,
+    the PyTorch (B, KC, L, T) join the route ran before; the bound is the
+    candidates' doc-major rows read once, B KC L 8 bytes."""
+    tids, cand, q_tids, k, row_ties = args[0], args[4], args[5], args[7], args[10]
+    (b, kc), width, t = cand.shape, tids.shape[1], q_tids.shape[1]
+    label = (f"L={width} KC={kc} T={t} k={k} B={b}" + (" ties in scan order" if not row_ties else "")
+             + (f" ({' '.join(map(str, key[4:]))})" if len(key) > 4 else ""))
+    return kernel_row(RESCORE, label, fn, ck.bm25_rescore_topk_reference, args,
+                      lambda: ck.bm25_rescore_topk_reference(*args), b * kc * width * 8, 0.0,
+                      key, rtol=1e-6)
 
 
 def scan_rows(ck, label, codes, qi, mask, k):
@@ -877,11 +936,16 @@ def main() -> int:
     def main_path(fn, tag=()):
         """Drive a main path once: every count set to 0 just before, read
         just after. Returns (its output, its launches by kernel, seconds).
-        `tag` extends this run's shape keys (phase 10's pod rows)."""
+        `tag` extends this run's shape keys (phase 10's pod rows). After
+        the path, each rescore shape it launched that no row has gets its
+        row (RESCORE_ROWS) on the inputs of its first launch there; those
+        comparison launches leave the path's counts as they were."""
         ck.reset_launches()
+        tap = RescoreTap(ck)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = fn()
+        with tap:
+            out = fn()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         delta = {fn_.__name__: fn_.launches for fn_ in ck.KERNELS}
@@ -890,6 +954,15 @@ def main() -> int:
         for key, n in ck.launches_by_shape.items():
             key = key + tuple(tag)
             shape_launches[key] = shape_launches.get(key, 0) + n
+        counts = dict(ck.launches_by_shape)
+        for key, args in tap.first.items():
+            key = key + tuple(tag)
+            if key not in RESCORE_ROWS:
+                RESCORE_ROWS[key] = rescore_row(ck, tap.fn, args, key)
+        del tap
+        ck.launches_by_shape.clear()
+        ck.launches_by_shape.update(counts)
+        ck.bm25_rescore_topk.launches = delta[RESCORE]
         return out, delta, dt
 
     def run(label, fn, n_batches):
@@ -908,8 +981,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     batches(0, n=1)  # warm-up (allocator, host caches)
     res0, d = run("sketch route, fused_depth 0", lambda: batches(0), N_BATCHES)
-    check(d["int8_scan_topk"] == 2 * N_BATCHES,
-          f"expected 2 scan launches per sketch batch, got {d['int8_scan_topk']}")
+    check(d["int8_scan_topk"] == 2 * N_BATCHES and d[RESCORE] == N_BATCHES,
+          f"expected 2 scan launches and one BM25 rescore per sketch batch, got {d}")
     res40, d = run(f"sketch route, fused_depth {FUSED_DEPTH}", lambda: batches(FUSED_DEPTH),
                    N_BATCHES)
     check(d["int8_scan_topk"] == 2 * N_BATCHES)
@@ -988,6 +1061,7 @@ def main() -> int:
     krows += phase_serving(ck, main_path, vecs, texts, smi, {row["_key"] for row in krows})
 
     # each row gets the main-path launches at its own shape
+    krows += RESCORE_ROWS.values()
     row_keys = [row.pop("_key") for row in krows]
     check(len(set(row_keys)) == len(row_keys), "two kernel rows at one shape")
     for row, key in zip(krows, row_keys):
@@ -996,7 +1070,7 @@ def main() -> int:
           f"main-path launches at shapes no row measured: {set(shape_launches) - set(row_keys)}")
     log(f"main-path launches by shape: "
         f"{json.dumps({'/'.join(map(str, k)): v for k, v in sorted(shape_launches.items())})}")
-    on_path = ("int8_scan_topk", "blockmax2", "hamming_scan_topk", "int8_scores")
+    on_path = ("int8_scan_topk", "blockmax2", "hamming_scan_topk", "int8_scores", RESCORE)
     for name in on_path:
         check(launches[name] > 0, f"kernel {name} was never launched on a main path")
     log(f"main-path launches: {json.dumps(launches)} (hamming_scores and hamming_scores_t have "
@@ -1191,8 +1265,9 @@ def phase_models(run, searcher, vecs, texts, queries, qtexts, smi):
     log(f"models chain warm-up: {time.perf_counter() - t0:.1f} s")
     out, d = run("models chain: embed_device -> search_rows(_qdev) k=40 -> rerank_rows 40->10",
                  lambda: [chain(i) for i in range(N_BATCHES)], N_BATCHES)
-    check(d["int8_scan_topk"] == 2 * N_BATCHES and sum(d.values()) == 2 * N_BATCHES,
-          f"expected both legs' k = 160 scans per batch, got {d}")
+    check(d["int8_scan_topk"] == 2 * N_BATCHES and d[RESCORE] == N_BATCHES
+          and sum(d.values()) == 3 * N_BATCHES,
+          f"expected both legs' k = 160 scans and one BM25 rescore per batch, got {d}")
     peak = torch.cuda.max_memory_allocated()
 
     # each stage alone on batch 0's inputs
@@ -2075,6 +2150,9 @@ def path_rows(ck, eng, bm, qdev, qtexts_, keys, path):
             rows.append(hamming_scan_row(ck, f"W={width} {label}", eng.codes,
                                          qwords[:b].contiguous(), mask, k,
                                          ck.sign_matrix(eng.codes)))
+        elif name == RESCORE:  # its row is main_path's, on the path's own inputs
+            check((name, width, k, b) in RESCORE_ROWS, f"no rescore row at {(width, k, b)}")
+            continue
         else:
             raise AssertionError(f"the {path} launched {name} at {(width, k, b)}, which no "
                                  "row covers")
@@ -3577,6 +3655,9 @@ def pod_kernel_rows(ck, idx, shards, keys, qvecs, qtexts_, bm):
         elif name == "int8_scan_topk" and width == sketch.shape[1]:
             rows.append(scan_rows(ck, f"sketch S={width} {label}", sketch,
                                   qind[:b].contiguous(), mask, k))
+        elif name == RESCORE:  # its row is main_path's, on the shard body's own inputs
+            check(key in RESCORE_ROWS, f"no rescore row at {key}")
+            continue
         else:
             raise AssertionError(f"the pod launched {name} at {key}, which no row covers")
         rows[-1]["_key"] = key  # the pod's tagged key

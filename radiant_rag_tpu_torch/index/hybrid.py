@@ -8,8 +8,9 @@ fusion, and one device->host fetch of the six packed result blocks.
 
 BM25 routes, chosen per batch by `BM25Index.routes_pages` under "auto":
   sketch  the signed (B, S) int8 query indicator against the (N, S) impact
-          sketch in the same fused kernel, then an exact BM25 rescore of the
-          candidates over the doc-major tables
+          sketch in the same fused kernel, then the candidates' exact BM25
+          over the doc-major tables and its top-k in one more kernel
+          (`cuda_kernels.bm25_rescore_topk`)
   pages   exact BM25 over the CSR postings by page table (a (B, N) scatter)
 
 The JAX package uploads each sketch-route batch as one byte blob to save
@@ -31,10 +32,9 @@ import torch
 from radiant_rag_tpu_torch import to_device
 from radiant_rag_tpu_torch.index.bm25 import BM25Index
 from radiant_rag_tpu_torch.index.engine import DeviceVectorIndex, row_mask
+from radiant_rag_tpu_torch.ops import cuda_kernels as ck
 from radiant_rag_tpu_torch.ops import similarity as sim
-from radiant_rag_tpu_torch.ops.bm25 import (
-    bm25_candidate_rescore, bm25_pages_scores, bm25_sketch_select,
-)
+from radiant_rag_tpu_torch.ops.bm25 import bm25_pages_scores, bm25_sketch_select
 from radiant_rag_tpu_torch.ops.fusion import (
     calibrated_leg_weights, rrf_fuse, score_fuse, weighted_rrf_fuse,
 )
@@ -51,6 +51,27 @@ def resolve_fused_depth(retrieval_cfg) -> int:
     if fd is None or int(fd) < 0:
         return 4 * int(getattr(retrieval_cfg, "fused_top_k", 15))
     return int(fd)
+
+
+def check_bm25_rescore_limits(cfg, device) -> None:
+    """Raise when the configuration asks the BM25 sketch route for more
+    candidates (max(bm25_top_k, fused depth) x rescore_multiplier) or query
+    term slots (bm25.max_query_terms) than the card's rescore kernel takes
+    (`cuda_kernels.RESCORE_MAX_KC`, `RESCORE_MAX_T`), so such a setting fails
+    when the searcher is built and not in every query. The CPU's plain
+    version takes any."""
+    if torch.device(device).type != "cuda":
+        return
+    depth = max(int(cfg.retrieval.bm25_top_k), resolve_fused_depth(cfg.retrieval))
+    kc = max(depth, int(round(depth * cfg.quantization.rescore_multiplier)))
+    if kc > ck.RESCORE_MAX_KC:
+        raise ValueError(
+            f"the BM25 leg would rescore {kc} candidates a query (depth {depth} x "
+            f"rescore_multiplier {cfg.quantization.rescore_multiplier}); the card's rescore "
+            f"kernel takes at most {ck.RESCORE_MAX_KC}")
+    if cfg.bm25.max_query_terms > ck.RESCORE_MAX_T:
+        raise ValueError(f"bm25.max_query_terms {cfg.bm25.max_query_terms} > "
+                         f"{ck.RESCORE_MAX_T}, the card's rescore kernel's term slots")
 
 
 def embed_queries_device(local_models, engine: DeviceVectorIndex, texts: Sequence[str]
@@ -492,13 +513,10 @@ class HybridSearcher:
                 if bm_kc > bk_eff:  # exact rescore of the sketch candidates
                     _s1, cand = bm25_sketch_select(bm._sketch, bm._sketch_scale, qind_t, mask,
                                                    bm_kc, select)
-                    cand = sim.sort_candidates_by_row(cand)
-                    exact = bm25_candidate_rescore(
+                    bm_s, bm_i = ck.bm25_rescore_topk(
                         bm._dm_tids, bm._dm_tfs, dl, avgdl, cand,
-                        to_device(q_tids, dev), to_device(q_idfs, dev),
+                        to_device(q_tids, dev), to_device(q_idfs, dev), bk_eff,
                         bm.k1, bm.b)
-                    bm_s, sel = sim.topk_first(exact, bk_eff)
-                    bm_i = torch.where(bm_s > 0.0, cand.gather(1, sel), -1)
                 else:
                     bm_s, bm_i = bm25_sketch_select(bm._sketch, bm._sketch_scale, qind_t, mask,
                                                     bk_eff, select)

@@ -13,9 +13,15 @@ Counterpart of `radiant_rag_tpu/ops/bm25.py`. BM25 as in the reference:
                             times the (N, S) int8 impact sketch, with the
                             candidate selection in the same kernel as the
                             dense leg's
-  bm25_candidate_rescore    stage 2: exact BM25 of the candidates over the
-                            doc-major (N, L) term tables
+  bm25_candidate_rescore    exact BM25 of the candidates over the doc-major
+                            (N, L) term tables, as a (B, KC, L, T) equality
+                            join: the PyTorch form of stage 2's scoring
   bm25_sketch_rescore_topk  both stages + top-k (returned scores are exact)
+
+Stage 2, the candidates' exact BM25 and its top-k, is one CUDA kernel on the
+card, `cuda_kernels.bm25_rescore_topk` (csrc/bm25_rescore_topk.cu); on the
+CPU it is its plain version `cuda_kernels.bm25_rescore_topk_reference`:
+the candidates sorted by row, `bm25_candidate_rescore`, `topk_first`.
 """
 
 from __future__ import annotations
@@ -24,9 +30,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from radiant_rag_tpu_torch.ops.similarity import (
-    NEG_INF, scan_select, sort_candidates_by_row, topk_first,
-)
+from radiant_rag_tpu_torch.ops import cuda_kernels as ck
+from radiant_rag_tpu_torch.ops.similarity import NEG_INF, scan_select, topk_first
 
 PAGE_SIZE = 2048
 _RESCORE_CELLS = 1 << 27  # (B, KC, L, T) compare cells per rescore step
@@ -141,12 +146,8 @@ def bm25_sketch_rescore_topk(sketch: torch.Tensor, scale: torch.Tensor, qind: to
                              mask: Optional[torch.Tensor], k: int, kc: int,
                              k1: float = 1.5, b: float = 0.75, select: str = ""
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Two-stage BM25: the sketch scan's kc candidates (row-sorted, so the
-    rescore's ties go to the lowest row), their exact BM25, top-k."""
+    """Two-stage BM25: the sketch scan's kc candidates, their exact BM25,
+    top-k (the rescore's ties go to the lowest row)."""
     _s1, cand = bm25_sketch_select(sketch, scale, qind, mask, kc, select)
-    cand = sort_candidates_by_row(cand)
-    exact = bm25_candidate_rescore(dm_tids, dm_tfs, doc_lens, avgdl, cand, q_tids, q_idfs,
-                                   k1, b)
-    top_s, sel = topk_first(exact, k)
-    top_i = cand.gather(1, sel)
-    return top_s, torch.where(top_s > 0.0, top_i, -1)
+    return ck.bm25_rescore_topk(dm_tids, dm_tfs, doc_lens, avgdl, cand, q_tids, q_idfs, k,
+                                k1, b)

@@ -7,10 +7,13 @@
   hamming_scan_topk  csrc/hamming.cu         <- similarity.hamming_scan_topk's scan,
                                                  the same product with a top-k epilogue
   int8_scores        csrc/int8_scores.cu     <- pallas_kernels.int8_scores_pallas
+  bm25_rescore_topk  csrc/bm25_rescore_topk.cu  <- no Pallas kernel: the BM25
+                                                 sketch route's stage 2 (ops/bm25.py),
+                                                 the candidates' exact BM25 and top-k
 
-All run on the int8 tensor-core tile (csrc/int8_mma_tile.cuh: wgmma int8
-products over 128 rows per CTA, 128 queries for the (B, N) scores and the
-block-max, 64 (or 32) for the scans). The int8 kernels feed it int8 rows by
+The others run on the int8 tensor-core tile (csrc/int8_mma_tile.cuh: wgmma
+int8 products over 128 rows per CTA, 128 queries for the (B, N) scores and
+the block-max, 64 (or 32) for the scans). The int8 kernels feed it int8 rows by
 cp.async; the Hamming kernels feed it their sign words unpacked to +-1
 bytes (`sign_matrix` is that operand), since <s_q, s_c> = 32 W - 2 Hamming.
 The scans share one filtered top-k epilogue and launch plan
@@ -20,7 +23,7 @@ The scans share one filtered top-k epilogue and launch plan
 A wrapper runs the plain PyTorch version only for CPU tensors. For CUDA
 tensors it launches the kernel or raises; nothing falls back. Each wrapper
 counts its launches in `<wrapper>.launches`, and by shape in
-`launches_by_shape[(wrapper name, D or W, k or 0, B)]`, so a run can show
+`launches_by_shape[(wrapper name, width D, W or L, k or 0, B)]`, so a run can show
 that its path went through the kernel, and at which shapes.
 
 The scan and block-max wrappers plan a launch in Python (`int8_scan_plan`,
@@ -44,6 +47,13 @@ popcount), a block of queries and rows at a time.
 
 Sign codes are int32 tensors holding the JAX package's uint32 bits; the
 kernels read them as uint32.
+
+`bm25_rescore_topk` is no product: one CTA per query streams its
+candidates' doc-major rows through shared memory by cp.async, matches
+them with the query's term ids, and sorts the candidates' (score, tie)
+keys (csrc/bm25_rescore_topk.cu). Its plain version is the PyTorch form
+the sketch route ran before: the candidates sorted by row (or kept in the
+scan's order), `ops/bm25.bm25_candidate_rescore`, `topk_first`.
 """
 
 from __future__ import annotations
@@ -76,6 +86,11 @@ MAX_D, MAX_W = (1 << 17) - 1, (1 << 12) - 1
 _EXACT_F32_D = 1024  # widest D whose dots an fp32 matmul sums exactly
 _P = ctypes.c_void_p
 _LAYOUT_MISMATCH = -1  # a scan entry's return when its shared-memory layout disagrees
+# the BM25 rescore (csrc/bm25_rescore_topk.cu): warps per CTA (one CTA per
+# query), ring stages per warp, candidates and term slots per query, the
+# key array's least length
+RESCORE_WARPS, RESCORE_STAGES = 8, 3
+RESCORE_MAX_KC, RESCORE_MAX_T, _RESCORE_MIN_KEYS = 4096, 128, 32
 launches_by_shape: Dict[Tuple[str, int, int, int], int] = {}
 
 
@@ -603,6 +618,117 @@ def hamming_scan_topk(codes: torch.Tensor, qcodes: torch.Tensor,
 hamming_scan_topk.launches = 0
 
 
+def bm25_rescore_topk_reference(doc_tids: torch.Tensor, doc_tfs: torch.Tensor,
+                                doc_lens: torch.Tensor, avgdl: torch.Tensor, cand: torch.Tensor,
+                                q_tids: torch.Tensor, q_idfs: torch.Tensor, k: int,
+                                k1: float = 1.5, b: float = 0.75, row_ties: bool = True
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `bm25_rescore_topk`."""
+    # imported here: ops.bm25 and ops.similarity import this module
+    from radiant_rag_tpu_torch.ops import bm25, similarity
+
+    if row_ties:
+        cand = similarity.sort_candidates_by_row(cand)
+    exact = bm25.bm25_candidate_rescore(doc_tids, doc_tfs, doc_lens, avgdl, cand, q_tids,
+                                        q_idfs, k1, b)
+    top_s, sel = similarity.topk_first(exact, k)
+    return top_s, torch.where(top_s > 0.0, cand.gather(1, sel), -1).to(torch.int32)
+
+
+def bm25_rescore_smem_bytes(width: int, kc: int) -> int:
+    """Shared memory of one rescore CTA: the (score, tie) keys (KC padded to
+    a power of two, at least 32), each warp's ring of (L tids, L tfs, the
+    doc length) stages of 16-byte multiples, the KC candidate rows."""
+    keys = max(_RESCORE_MIN_KEYS, 1 << max(0, (kc - 1).bit_length()))
+    stage = -(-(8 * width + 4) // 16) * 16
+    return keys * 8 + RESCORE_WARPS * RESCORE_STAGES * stage + -(-(4 * kc) // 16) * 16
+
+
+def bm25_rescore_check(width: int, kc: int, t: int, k: int) -> int:
+    """Raise on a shape the rescore kernel cannot take; else its shared
+    memory per CTA."""
+    if width % 4:
+        raise ValueError(f"L={width}: the kernel copies the term rows 16 bytes at a time, "
+                         "so L must be a multiple of 4")
+    if not 1 <= kc <= RESCORE_MAX_KC:
+        raise ValueError(f"KC={kc} candidates outside the kernel's 1..{RESCORE_MAX_KC}")
+    if not 1 <= k <= kc:
+        raise ValueError(f"k={k} outside the kernel's 1..KC={kc}")
+    if not 0 <= t <= RESCORE_MAX_T:
+        raise ValueError(f"T={t} query terms outside the kernel's 0..{RESCORE_MAX_T}")
+    smem = bm25_rescore_smem_bytes(width, kc)
+    if smem > SMEM_MAX:
+        raise ValueError(f"L={width}, KC={kc} need {smem} bytes of shared memory per CTA "
+                         f"(keys + {RESCORE_WARPS} warps x {RESCORE_STAGES} rows of L x 8 "
+                         f"bytes) > {SMEM_MAX}")
+    return smem
+
+
+def _check_rescore(doc_tids, doc_tfs, doc_lens, avgdl, cand, q_tids, q_idfs) -> None:
+    ints, floats = (doc_tids, doc_tfs, cand, q_tids), (doc_lens, avgdl, q_idfs)
+    if any(x.dtype != torch.int32 for x in ints) or any(x.dtype != torch.float32
+                                                        for x in floats):
+        raise TypeError("int32 term tables, candidates and query terms and float32 lengths, "
+                        "avgdl and idfs expected")
+    if any(x.device != cand.device for x in ints + floats):
+        raise ValueError("the rescore's tensors must be on one device")
+    if (doc_tids.dim() != 2 or doc_tfs.shape != doc_tids.shape or cand.dim() != 2
+            or q_tids.dim() != 2 or q_idfs.shape != q_tids.shape
+            or q_tids.shape[0] != cand.shape[0] or doc_lens.dim() != 1
+            or doc_lens.shape[0] < doc_tids.shape[0] or avgdl.numel() != 1):
+        raise ValueError(f"shapes do not match: tables {tuple(doc_tids.shape)} / "
+                         f"{tuple(doc_tfs.shape)}, lengths {tuple(doc_lens.shape)}, candidates "
+                         f"{tuple(cand.shape)}, terms {tuple(q_tids.shape)} / "
+                         f"{tuple(q_idfs.shape)}")
+    if not (doc_tids.is_contiguous() and doc_tfs.is_contiguous() and doc_lens.is_contiguous()):
+        raise ValueError("the term tables and lengths must be contiguous")
+    if doc_tids.data_ptr() % 16 or doc_tfs.data_ptr() % 16:
+        raise ValueError("the term tables must start on a 16-byte boundary")
+
+
+def bm25_rescore_topk(doc_tids: torch.Tensor, doc_tfs: torch.Tensor, doc_lens: torch.Tensor,
+                      avgdl: torch.Tensor, cand: torch.Tensor, q_tids: torch.Tensor,
+                      q_idfs: torch.Tensor, k: int, k1: float = 1.5, b: float = 0.75,
+                      row_ties: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact BM25 of (B, KC) candidate rows and its top-k per query.
+
+    doc_tids / doc_tfs (N, L) int32 doc-major term ids (-1 = empty slot) and
+    tfs, doc_lens (>= N,) f32, avgdl one f32, cand (B, KC) int32 rows (-1 =
+    pad), q_tids (B, T) int32 (-1 = empty) and q_idfs (B, T) f32. Returns
+    ((B, k) f32 scores, (B, k) int32 rows, -1 where the score is not > 0),
+    ordered score descending, then row ascending (`row_ties`) or candidate
+    position ascending (the order `cand` holds). Pads score NEG_INF."""
+    if cand.device.type == "cpu":
+        return bm25_rescore_topk_reference(doc_tids, doc_tfs, doc_lens, avgdl, cand, q_tids,
+                                           q_idfs, k, k1, b, row_ties)
+    _check_rescore(doc_tids, doc_tfs, doc_lens, avgdl, cand, q_tids, q_idfs)
+    (bq, kc), (n, width), t = cand.shape, doc_tids.shape, q_tids.shape[1]
+    dev = cand.device
+    out_s = torch.empty((bq, k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((bq, k), dtype=torch.int32, device=dev)
+    if bq == 0 or k == 0:
+        return out_s, out_r
+    smem = bm25_rescore_check(width, kc, t, k)
+    if n >= 2**31 - 1:
+        raise ValueError(f"{n} rows exceed the kernel's int32 row ids")
+    cand, q_tids, q_idfs = cand.contiguous(), q_tids.contiguous(), q_idfs.contiguous()
+    f = ctypes.c_float
+    fn = _lib("bm25_rescore_topk", "rr_bm25_rescore_topk",
+              [_P] * 7 + [ctypes.c_int] * 5 + [f] * 4 + [ctypes.c_int, ctypes.c_int64]
+              + [_P] * 3)
+    with torch.cuda.device(dev):
+        err = fn(doc_tids.data_ptr(), doc_tfs.data_ptr(), doc_lens.data_ptr(), avgdl.data_ptr(),
+                 cand.data_ptr(), q_tids.data_ptr(), q_idfs.data_ptr(), bq, kc, width, t, k,
+                 f(k1), f(b), f(1.0 - b), f(k1 + 1.0), int(row_ties), smem,
+                 out_s.data_ptr(), out_r.data_ptr(), _stream(dev))
+    _raise_on(err, "bm25_rescore_topk")
+    _count(bm25_rescore_topk, width, k, bq)
+    return out_s, out_r
+
+
+bm25_rescore_topk.launches = 0
+
+
 def reset_launches() -> None:
     """Set every wrapper's launch count to 0, by shape too."""
     for fn in KERNELS:
@@ -611,4 +737,4 @@ def reset_launches() -> None:
 
 
 KERNELS = (int8_scan_topk, blockmax2, hamming_scan_topk, hamming_scores, hamming_scores_t,
-           int8_scores)
+           int8_scores, bm25_rescore_topk)

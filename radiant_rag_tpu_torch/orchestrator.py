@@ -68,7 +68,7 @@ from radiant_rag_tpu_torch.agents.tools import ToolSelector, create_default_tool
 from radiant_rag_tpu_torch.agents.web_search import WebSearchAgent
 from radiant_rag_tpu_torch.config import AppConfig
 from radiant_rag_tpu_torch.index.hybrid import (
-    HybridSearcher, embed_queries_device, resolve_fused_depth,
+    HybridSearcher, check_bm25_rescore_limits, embed_queries_device, resolve_fused_depth,
 )
 from radiant_rag_tpu_torch.utils.metrics import RunMetrics
 from radiant_rag_tpu_torch.utils.metrics_export import UnifiedMetrics, guarded
@@ -167,6 +167,7 @@ class RAGOrchestrator:
         self._hybrid_serves = False
         engine = self._store_engine()
         if engine is not None and hasattr(bm25_index, "index"):
+            check_bm25_rescore_limits(cfg, engine.device)
             self._hybrid = HybridSearcher(engine, bm25_index._index)
             self._hybrid_serves = hasattr(store, "engine")
             # every search_rows through this searcher (serving, the agentic

@@ -20,9 +20,10 @@ The shard body's BM25 leg keeps the sketch candidates in the scan's order
 (score descending, then row ascending), as the JAX shard body does with
 `full_topk`, and does not row-sort them as the single-device
 `bm25_sketch_rescore_topk` does: an exact-BM25 tie in the rescore goes to
-the candidate the sketch ranked higher. Its exact rescore takes the BM25
-index's k1 and b (the JAX body takes the defaults 1.5 / 0.75: equal under
-the default config).
+the candidate the sketch ranked higher (`cuda_kernels.bm25_rescore_topk`
+with `row_ties=False`). Its exact rescore takes the BM25 index's k1 and b
+(the JAX body takes the defaults 1.5 / 0.75: equal under the default
+config).
 """
 
 from __future__ import annotations
@@ -35,9 +36,10 @@ import torch
 from radiant_rag_tpu_torch.index.engine import DeviceVectorIndex, row_mask
 from radiant_rag_tpu_torch.index.store import _normalize
 from radiant_rag_tpu_torch.index.hybrid import _fuse_stage
+from radiant_rag_tpu_torch.ops import cuda_kernels as ck
 from radiant_rag_tpu_torch.ops import quantize as qz
 from radiant_rag_tpu_torch.ops import similarity as sim
-from radiant_rag_tpu_torch.ops.bm25 import bm25_candidate_rescore, bm25_sketch_select
+from radiant_rag_tpu_torch.ops.bm25 import bm25_sketch_select
 from radiant_rag_tpu_torch.parallel.mesh import Mesh
 
 QUERY_BUCKETS = DeviceVectorIndex.QUERY_BUCKETS
@@ -201,11 +203,9 @@ class ShardedHybridIndex(ShardedFlatIndex):
         scale = torch.tensor(self.sketch_scale, dtype=torch.float32, device=dev)
         _s1, cand = bm25_sketch_select(self.sketch[s], scale, qind, self.valid[s], bm_kc)
         avgdl = torch.tensor(self.avgdl, dtype=torch.float32, device=dev)
-        exact = bm25_candidate_rescore(self.dm_tids[s], self.dm_tfs[s], self.doc_lens[s], avgdl,
-                                       cand, q_tids, q_idfs, self.k1, self.b)
-        bs, sel = sim.topk_first(exact, bk)
-        bi = cand.gather(1, sel) + s * self.rows_per_shard
-        return bs, torch.where(bs > 0.0, bi, -1)
+        bs, bi = ck.bm25_rescore_topk(self.dm_tids[s], self.dm_tfs[s], self.doc_lens[s], avgdl,
+                                      cand, q_tids, q_idfs, bk, self.k1, self.b, row_ties=False)
+        return bs, torch.where(bi >= 0, bi + s * self.rows_per_shard, -1)
 
     def hybrid_search(self, queries_dense: np.ndarray, queries_text: Sequence[str],
                       dense_k: int = 10, bm25_k: int = 10, fused_k: int = 15, rrf_k: int = 60,

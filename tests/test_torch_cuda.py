@@ -4,10 +4,12 @@ Imports no jax, so it also runs on a machine without the JAX package:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerance: the kernels do integer work and must equal their plain versions
-exactly; the whole path on the card must match the CPU path under
-tests/_torch_parity.py's rule (scores within rtol 1e-5 / atol 1e-6 for the
-fp32 summation order, rows equal up to swaps of candidates tied within it).
+Tolerance: the scan and score kernels do integer work and must equal their
+plain versions exactly; the BM25 rescore's rows must too, its scores within
+rtol 1e-6 (it sums the term slots in another order); the whole path on
+the card must match the CPU path under tests/_torch_parity.py's rule
+(scores within rtol 1e-5 / atol 1e-6 for the fp32 summation order, rows
+equal up to swaps of candidates tied within it).
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 from radiant_rag_tpu_torch.ops import cuda_kernels as ck
 
 from _torch_parity import assert_edges_match, assert_result_match
+from _torch_rescore import rescore_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -249,6 +252,60 @@ def test_hamming_kernels_past_32_words(card):
     ps, pr = ck.hamming_scan_topk_reference(words, q, mask, 100)
     assert torch.equal(r, pr) and torch.equal(s, ps)
     assert torch.equal(h, ck.hamming_scores_reference(words, q))
+
+
+def _rescore_on(card, seed, n, b, kc, width, t):
+    """`rescore_inputs` on the card."""
+    return [torch.from_numpy(np.asarray(a)).to(card)
+            for a in rescore_inputs(seed, n, b, kc, width, t)]
+
+
+def _rescore_pair(card, args, k, row_ties):
+    """The kernel against its plain version on the same card inputs: rows
+    equal, scores within rtol 1e-6 (the sum over the term slots is taken in
+    another order)."""
+    b, width = args[4].shape[0], args[0].shape[1]
+    key = ("bm25_rescore_topk", width, k, b)
+    before = (ck.bm25_rescore_topk.launches, ck.launches_by_shape.get(key, 0))
+    s, r = ck.bm25_rescore_topk(*args, k, row_ties=row_ties)
+    torch.cuda.synchronize()
+    assert (ck.bm25_rescore_topk.launches, ck.launches_by_shape[key]) == \
+        (before[0] + 1, before[1] + 1)
+    ps, pr = ck.bm25_rescore_topk_reference(*args, k, row_ties=row_ties)
+    assert r.dtype == torch.int32 and s.dtype == torch.float32
+    assert torch.equal(r, pr), f"{int((r != pr).any(dim=1).sum())} query rows differ"
+    torch.testing.assert_close(s, ps, rtol=1e-6, atol=0)
+    return s, r
+
+
+# the cells' shapes, scaled in N: B = 2048 at KC = 240 (int8 preset) and 360
+# (memory preset), L = 128, T = 32, bk = 10 and the cells' 60; B = 32 at KC =
+# 128, bk 32; the pod's rule (ties in the candidates' order) at both B
+@pytest.mark.parametrize("b,kc,k,row_ties", [(2048, 240, 10, True), (2048, 240, 60, True),
+                                             (2048, 360, 10, True), (2048, 360, 60, True),
+                                             (32, 128, 32, True), (32, 128, 10, False),
+                                             (2048, 240, 60, False)])
+def test_bm25_rescore_topk_at_the_cells_shapes(card, b, kc, k, row_ties):
+    args = _rescore_on(card, b + kc + k, 200_000, b, kc, 128, 32)
+    s, r = _rescore_pair(card, args, k, row_ties)
+    assert (r >= 0).float().mean() > 0.5  # most slots hold a scored row
+    assert (r[2] == -1).all() and (s[2] == -1e30).all()  # the all-pad query
+    assert (r[3] == -1).all() and (s[3] == 0).all()  # the query without a term
+    tied = [x for x in dict.fromkeys(r[0].tolist()) if x in (5, 100_000, 199_999)]
+    assert tied == ([5, 100_000, 199_999] if row_ties else [199_999, 100_000, 5])
+
+
+# KC off 32 with bk = KC; one candidate; T > 32 (2 and 4 term slots a lane);
+# no term slot
+@pytest.mark.parametrize("n,b,kc,width,t,k", [(5000, 40, 37, 128, 32, 37),
+                                              (5000, 9, 1, 16, 8, 1),
+                                              (5000, 17, 64, 64, 48, 16),
+                                              (5000, 17, 64, 64, 128, 16),
+                                              (5000, 17, 64, 64, 0, 16)])
+@pytest.mark.parametrize("row_ties", [True, False], ids=["row_sorted", "scan_order"])
+def test_bm25_rescore_topk_edges(card, n, b, kc, width, t, k, row_ties):
+    args = _rescore_on(card, n + kc + width + t, n, b, kc, width, t)
+    _rescore_pair(card, args, k, row_ties)
 
 
 @pytest.mark.parametrize("route,select", [("sketch", ""), ("pages", ""),

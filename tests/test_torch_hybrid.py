@@ -356,3 +356,27 @@ def test_oversized_qdev_batch_is_chunked_through_the_host(chain):
     for leg in ref:
         np.testing.assert_array_equal(got[leg][1], ref[leg][1])
         np.testing.assert_array_equal(got[leg][0], ref[leg][0])
+
+
+@pytest.mark.parametrize("data,what", [
+    ({"retrieval": {"fused_top_k": 129}, "quantization": {"rescore_multiplier": 8.0}},
+     "4128 candidates"),
+    ({"retrieval": {"bm25_top_k": 2049, "fused_depth": 0}}, "8196 candidates"),
+    ({"bm25": {"max_query_terms": 129}}, "max_query_terms 129"),
+])
+def test_searcher_refuses_a_config_past_the_card_rescore_limits(data, what):
+    """A setting the card's BM25 rescore kernel cannot take fails when the
+    searcher is built for a card, and never on the CPU, whose plain
+    version takes any; the presets stay inside the limits."""
+    from radiant_rag_tpu_torch.config import config_from_dict
+    from radiant_rag_tpu_torch.index.hybrid import check_bm25_rescore_limits
+
+    cfg = config_from_dict(data)
+    with pytest.raises(ValueError, match=what):
+        check_bm25_rescore_limits(cfg, torch.device("cuda"))
+    check_bm25_rescore_limits(cfg, "cpu")
+    edge = {"retrieval": {"fused_top_k": 128}, "quantization": {"rescore_multiplier": 8.0},
+            "bm25": {"max_query_terms": 128}}
+    for ok in ({}, edge, {"quantization": {"rescore_multiplier": 8.0},
+                          "retrieval": {"fused_depth": 120}}):
+        check_bm25_rescore_limits(config_from_dict(ok), "cuda")

@@ -136,3 +136,22 @@ def test_blockmax2_plan_lifts_the_tile_count_cap():
     assert -(-n // ck.BLOCKMAX_TILE) > 65_535
     plan = ck.blockmax2_plan(n, 3, SMS, 2)
     assert plan.splits == SMS * 2 and plan.splits * plan.rows_per_split >= n
+
+
+def test_bm25_rescore_constants_match_the_cuda_source():
+    src = CSRC / "bm25_rescore_topk.cu"
+    assert _constant(src, "WARPS") == ck.RESCORE_WARPS
+    assert _constant(src, "STAGES") == ck.RESCORE_STAGES
+    assert _constant(src, "MAX_KC") == ck.RESCORE_MAX_KC
+    assert _constant(src, "MAX_T") == ck.RESCORE_MAX_T
+    assert _constant(src, "MIN_KEYS") == ck._RESCORE_MIN_KEYS
+
+
+# (L, KC, T, bk) of the BM25 rescore in the cells: the int8 preset (kc 240),
+# the memory preset (kc 360) at fused depth 60, and B = 32 at top 32
+@pytest.mark.parametrize("width,kc,t,k", [(128, 240, 32, 60), (128, 360, 32, 60),
+                                          (128, 128, 32, 32)])
+def test_bm25_rescore_fits_four_ctas_per_sm_at_the_cells_shapes(width, kc, t, k):
+    smem = ck.bm25_rescore_check(width, kc, t, k)
+    assert smem == ck.bm25_rescore_smem_bytes(width, kc)
+    assert 4 * (smem + 1024) <= 228 * 1024  # the kernel's launch bounds ask for 4 per SM

@@ -26,6 +26,7 @@ from radiant_rag_tpu_torch.ops import quantize as tq
 from radiant_rag_tpu_torch.ops import similarity as tsim
 
 from _torch_parity import assert_rows_match
+from _torch_rescore import rescore_inputs
 
 T = torch.from_numpy
 
@@ -295,6 +296,122 @@ def test_bm25_candidate_rescore_matches_jax():
     ts = tbm.bm25_candidate_rescore(T(dm_tids), T(dm_tfs), T(doc_lens), torch.tensor(avgdl),
                                     T(cand), T(q_tids), T(q_idfs))
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5, atol=1e-6)
+
+
+def _rescore_args(seed, n=600, b=9, kc=40, width=16, t=8):
+    return [T(np.asarray(x)) for x in rescore_inputs(seed, n, b, kc, width, t)]
+
+
+def _rescore_oracle(dm_tids, dm_tfs, doc_lens, avgdl, cand, q_tids, q_idfs, k, k1, b,
+                    row_ties):
+    """numpy float32, one candidate and one term at a time: the exact BM25
+    in `_impact`'s operation order, summed over the term slots in order,
+    then the k best by (score descending, row or position ascending)."""
+    f = np.float32
+    avg = max(f(avgdl), f(1e-6))
+    out_s, out_r = [], []
+    for q in range(cand.shape[0]):
+        keys = []
+        for c, r in enumerate(cand[q]):
+            score = f(-1e30)
+            if r >= 0:
+                score = f(0.0)
+                for tid, idf in zip(q_tids[q], q_idfs[q]):
+                    if tid < 0:
+                        continue
+                    tf = f(dm_tfs[r][dm_tids[r] == tid].sum())
+                    denom = tf + f(k1) * (f(1.0 - b) + f(b) * doc_lens[r] / avg)
+                    score = score + idf * tf * f(k1 + 1.0) / max(denom, f(1e-6))
+            keys.append((-score, (r if r >= 0 else 2**32) if row_ties else c, r))
+        top = sorted(keys)[:k]
+        out_s.append([-s for s, _, _ in top])
+        out_r.append([r if -s > 0 else -1 for s, _, r in top])
+    return np.asarray(out_s, np.float32), np.asarray(out_r, np.int32)
+
+
+@pytest.mark.parametrize("kc,k", [(40, 10), (37, 37)])
+@pytest.mark.parametrize("row_ties", [True, False], ids=["row_sorted", "scan_order"])
+def test_bm25_rescore_topk_reference_is_the_replaced_torch_form(row_ties, kc, k):
+    """The plain version equals the torch code the BM25 leg ran before, as
+    `search_rows` (row-sorted candidates) and the pod's shard body (the
+    scan's order) composed it."""
+    dm_tids, dm_tfs, dl, avgdl, cand, q_tids, q_idfs = _rescore_args(3, kc=kc)
+    c = tsim.sort_candidates_by_row(cand) if row_ties else cand
+    exact = tbm.bm25_candidate_rescore(dm_tids, dm_tfs, dl, avgdl, c, q_tids, q_idfs, 1.2, 0.7)
+    want_s, sel = tsim.topk_first(exact, k)
+    want_r = torch.where(want_s > 0.0, c.gather(1, sel), -1)
+    got_s, got_r = ck.bm25_rescore_topk_reference(dm_tids, dm_tfs, dl, avgdl, cand, q_tids,
+                                                  q_idfs, k, 1.2, 0.7, row_ties)
+    assert got_r.dtype == torch.int32
+    assert torch.equal(got_s, want_s) and torch.equal(got_r, want_r.to(torch.int32))
+
+
+@pytest.mark.parametrize("row_ties", [True, False], ids=["row_sorted", "scan_order"])
+def test_bm25_rescore_topk_reference_matches_an_oracle(row_ties):
+    args = _rescore_args(4)
+    s, r = ck.bm25_rescore_topk_reference(*args, 10, 1.5, 0.75, row_ties)
+    want_s, want_r = _rescore_oracle(*(a.numpy() for a in args), 10, 1.5, 0.75, row_ties)
+    assert_rows_match(want_r, want_s, r.numpy(), s.numpy(), "rescore vs oracle")
+    np.testing.assert_array_equal(r.numpy() >= 0, want_r >= 0)
+    np.testing.assert_allclose(s.numpy(), want_s, rtol=1e-6)
+    # the tied rows (3 copies, listed highest first) come lowest row first
+    # under the row rule and in the candidates' order under the scan's
+    # (the random candidates may list one of them twice)
+    tied = r[0][torch.isin(r[0], torch.tensor([5, 300, 599], dtype=torch.int32))]
+    assert list(dict.fromkeys(tied.tolist())) == ([5, 300, 599] if row_ties else [599, 300, 5])
+
+
+def test_bm25_rescore_topk_takes_the_plain_version_on_cpu():
+    args = _rescore_args(5)
+    before = ck.bm25_rescore_topk.launches
+    for row_ties in (True, False):
+        got = ck.bm25_rescore_topk(*args, 10, row_ties=row_ties)
+        want = ck.bm25_rescore_topk_reference(*args, 10, row_ties=row_ties)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert ck.bm25_rescore_topk.launches == before
+
+
+def test_bm25_rescore_topk_rejects_what_the_kernel_cannot_take():
+    """The card route's checks, on tensors of the meta device (no data):
+    each refusal comes before any build or launch."""
+    def meta(b=4, kc=40, width=128, t=32, n=1000, dl=1000, **dtypes):
+        shapes = dict(dm_tids=(n, width), dm_tfs=(n, width), doc_lens=(dl,), avgdl=(),
+                      cand=(b, kc), q_tids=(b, t), q_idfs=(b, t))
+        return [torch.empty(shape, device="meta", dtype=dtypes.get(
+            name, torch.float32 if name in ("doc_lens", "avgdl", "q_idfs") else torch.int32))
+            for name, shape in shapes.items()]
+
+    for kw, k, what in [(dict(kc=ck.RESCORE_MAX_KC + 1), 10, "KC="), (dict(), 41, "k="),
+                        (dict(t=ck.RESCORE_MAX_T + 1), 10, "T="),
+                        (dict(width=2000), 10, "shared memory"), (dict(dl=999), 10, "shapes"),
+                        (dict(width=130), 10, "multiple of 4")]:
+        with pytest.raises(ValueError, match=what):
+            ck.bm25_rescore_topk(*meta(**kw), k)
+    tids, tfs, *rest = meta()
+    for i in (0, 1):  # a table one int32 off the 16-byte boundary
+        tables = [tids, tfs]
+        tables[i] = torch.empty(1000 * 128 + 1, dtype=torch.int32,
+                                device="meta")[1:].view(1000, 128)
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            ck.bm25_rescore_topk(*tables, *rest, 10)
+    *args, _ = meta()
+    with pytest.raises(ValueError, match="shapes"):
+        ck.bm25_rescore_topk(*args, torch.empty((4, 31), device="meta"), 10)
+    with pytest.raises(TypeError):
+        ck.bm25_rescore_topk(*meta(cand=torch.int64), 10)
+    with pytest.raises(TypeError):
+        ck.bm25_rescore_topk(*meta(doc_lens=torch.float16), 10)
+    tids, *rest = meta()
+    with pytest.raises(ValueError, match="one device"):
+        ck.bm25_rescore_topk(torch.empty(tids.shape, dtype=torch.int32), *rest, 10)
+    tids, tfs, *rest = meta()
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.bm25_rescore_topk(tids.T.contiguous().T, tfs, *rest, 10)
+    for width, kc, t in [(128, 240, 32), (128, 360, 32), (128, 128, 32), (128, 4096, 128),
+                         (952, 4096, 32)]:
+        assert ck.bm25_rescore_check(width, kc, t, 60 if kc >= 60 else kc) <= ck.SMEM_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.bm25_rescore_check(956, 4096, 32, 10)
 
 
 @pytest.mark.parametrize("select", ["f32", "blockmax"])

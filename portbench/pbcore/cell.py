@@ -1,17 +1,21 @@
 """One run of one cell: set-up, the measured window, the reference's check.
 
   set-up   inputs and weights from the seed on the device, the system built
-           as the app builds it (pbcore/system.py), the cell's own request
-           shape warmed (`warmup_requests` requests); setup_s runs from the
-           process's start to the first timed request
+           as the app builds it (pbcore/system.py), then each of the
+           traffic's stages (`build`), the cell's own request shape warmed
+           (`warmup_requests` requests); setup_s runs from the process's
+           start to the first timed request
   window   a closed loop of `in_flight` requests for `seconds`, then drained;
            every request's latency runs from its dispatch to its results on
            the host; qps = queries completed / (last completion - start);
            peak_gib = torch.cuda.max_memory_allocated() after a reset at the
-           start; with trace, torch.profiler records the window
+           start; with trace, torch.profiler records the window; torch's
+           host work runs on one intra-op thread (`WINDOW_THREADS`)
   check    a sample of the finished requests (drawn from the seed) kept,
            the port's state freed, the reference built and each number of
-           pbcore/judge.py compared with the cell's limit; with `control`,
+           pbcore/judge.py (the stages' too) compared with the cell's limit
+           (a number without a limit stops the run; a limit without a
+           number is not correct); with `control`,
            the control (the reference one precision lower in the port's
            place) compared with the same limits (`control_correct`)
 """
@@ -33,6 +37,14 @@ from pbcore.system import System, capacity_of
 from work import counts
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "radiant_rag_tpu")
+
+# torch's intra-op threads while the window runs; set-up and the check keep
+# the default (a thread a core). A parallel host operation of the serving
+# loop waits for its slowest thread, and where the host's cores are shared
+# that thread is often descheduled: on an H100 host with six busy processes
+# beside the run, int8-text-b2048's p95 read 126-159 ms with the default
+# pool and 119 ms with one thread.
+WINDOW_THREADS = 1
 
 
 def forbidden_modules() -> List[str]:
@@ -75,7 +87,8 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device: torch.d
         config = _merge(config, overrides.get("config", {}))
         traffic = _merge(traffic, overrides.get("traffic", {}))
     plan = counts.plan(config, traffic)
-    tracer = trace.Tracer(traced)
+    stages = cell.stages()
+    tracer = trace.Tracer(traced, trace.SPANS + tuple(s for st in stages for s in st.SPANS))
 
     # -- set-up -----------------------------------------------------------------
     params = data.model_params(config, seed, device)
@@ -83,6 +96,8 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device: torch.d
     n_batches = data.batches_for(traffic, seconds) + int(traffic["warmup_requests"])
     queries = data.make_queries(traffic, corpus, seed, device, n_batches)
     system = System(config, traffic, corpus, params, device)
+    for st in stages:
+        st.build(system, config, traffic, seed, device)
     probe_embeddings = system.probe_embeddings
     corpus.vecs = params = None  # the system holds its own copies; the reference draws them again
     driver = cell.driver().Driver(system, queries, tracer)
@@ -106,6 +121,8 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device: torch.d
     setup_peak = _peak(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(WINDOW_THREADS)
     tracer.start()
     pending = collections.deque()
     issued = 0
@@ -128,13 +145,14 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device: torch.d
         _sync(device)
         t1 = time.perf_counter()
     summary = tracer.stop()
+    torch.set_num_threads(threads)
     window_peak = _peak(device)  # read before the reference allocates anything
     window_s = t1 - t0
     b = int(traffic["batch_size"])
     requests = len(latencies)
     run = Run(config=config, traffic=traffic, requests=requests, queries=requests * b,
               window_s=summary.window_s if summary else window_s, trace=summary,
-              work=counts.per_request(config, traffic))
+              work=counts.per_request(config, traffic, stages))
 
     # -- the check --------------------------------------------------------------
     picks = sorted(rng.choice(sorted(kept), size=min(len(kept), int(traffic["judged_requests"])),
@@ -154,14 +172,13 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device: torch.d
         torch.cuda.empty_cache()
     corpus.vecs = corpus.vecs_host.to(device)
     world = judge.World(config, traffic, plan, corpus, data.model_params(config, seed, device),
-                        device, row_capacity, probe_embeddings)
-    numbers = judge.judge_all(world, batches)
-    compare = {k: {"value": v, "limit": float(limits[k])} for k, v in sorted(numbers.items())}
-    correct = bool(batches) and all(c["value"] <= c["limit"] for c in compare.values())
+                        device, row_capacity, probe_embeddings, seed=seed, stages=stages)
+    compare = _against(judge.judge_all(world, batches), limits)
+    correct = bool(batches) and set(compare) == set(limits) and \
+        all(c["value"] <= c["limit"] for c in compare.values())
     controls = None
     if control:
-        controls = {k: {"value": v, "limit": float(limits[k])}
-                    for k, v in sorted(judge.judge_all(world, batches, judge.CONTROL).items())}
+        controls = _against(judge.judge_all(world, batches, judge.CONTROL), limits)
 
     metrics: Dict[str, Dict] = {}
     if not traced:
@@ -187,13 +204,21 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device: torch.d
         dev["busy_s"] = summary.busy_s
         dev["window_s"] = summary.window_s
         line["breakdown"] = {"device_ops": summary.top_ops(10),
-                             "idle_gaps": [[n, s] for n, s in summary.gaps[:10]]}
+                             "idle_gaps": [[g.label, g.seconds] for g in summary.gaps[:10]]}
     line["calibration"] = world.calibration
     if controls is not None:
         line["control"] = controls
         line["control_correct"] = all(c["value"] <= c["limit"] for c in controls.values())
     line["compare"] = compare
     return Outcome(line=line, compare=compare)
+
+
+def _against(numbers: Dict[str, float], limits: Dict) -> Dict[str, Dict[str, float]]:
+    """Each number beside its limit; a number with no limit is an error."""
+    unlimited = sorted(set(numbers) - set(limits))
+    if unlimited:
+        raise KeyError(f"numbers judged without a limit in the cell's limits file: {unlimited}")
+    return {k: {"value": v, "limit": float(limits[k])} for k, v in sorted(numbers.items())}
 
 
 def _rows(v, pick: np.ndarray):

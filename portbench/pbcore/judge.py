@@ -19,6 +19,11 @@ the seed among those that finished), stage by stage:
   rerank_gap  per rank j < top_k: |ref_j - ref(port row j)| of the blend
               score z(logit) + w z(prior), in z units
 
+Each of the traffic's stages (stages/<stage>.py) then judges its own
+outputs (`judge(world, batch, out)`, after the numbers above) and stands
+in the port's place for the control (`outputs(world, batch, prec)`); a
+stage reads the corpus, the seed and the device from the world.
+
 A rank holding a row on one side and none on the other reads 1. The
 reference follows the port's own state in three places, each judged by
 itself first: the dense and BM25 legs start from the port's query
@@ -81,8 +86,10 @@ class World:
     """The reference's state: what the port derives in set-up, worked out again."""
 
     def __init__(self, config: Dict, traffic: Dict, plan: Dict, corpus, params: Dict,
-                 device, row_capacity: int, probe_embeddings: Dict[tuple, np.ndarray]) -> None:
+                 device, row_capacity: int, probe_embeddings: Dict[tuple, np.ndarray],
+                 seed: int, stages: Sequence = ()) -> None:
         self.config, self.traffic, self.plan = config, traffic, plan
+        self.seed, self.stages = seed, list(stages)
         self.row_capacity = row_capacity
         self.pc = config["program_config"]
         self.device = device
@@ -228,6 +235,8 @@ class World:
             rows = fr.gather(1, order)
             out["rerank"] = (torch.where(rows >= 0, logits.gather(1, order), float("-inf")),
                              rows)
+        for st in self.stages:
+            out.update(st.outputs(self, batch, prec))
         return out
 
     def _rerank(self, batch: Batch, rows: torch.Tensor, prior: torch.Tensor,
@@ -311,6 +320,11 @@ class World:
             err = torch.where(found & (pr >= 0), (ps.float() - lg).abs(), 0.0) / big
             err = torch.where(found | (pr < 0), err, MISSING)
             nums["ce_gap"] = float(err.max())
+        for st in self.stages:
+            for name, v in st.judge(self, batch, out).items():
+                if name in nums:
+                    raise ValueError(f"stage {st.__name__}: number {name!r} is judged twice")
+                nums[name] = float(v)
         return nums
 
 

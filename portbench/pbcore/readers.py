@@ -8,7 +8,7 @@ of a peak is never made up: no device time, no share.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import List, Optional
+from typing import Callable, List, Optional, Sequence
 
 from work import counts
 
@@ -31,6 +31,25 @@ def span_ms(run, span: str) -> Optional[float]:
     if run.trace is None or run.requests == 0:
         return None
     s = run.trace.device_seconds(span=span)
+    return s / run.requests * 1e3 if s > 0 else None
+
+
+def program_span_ms(run, name: str) -> Optional[float]:
+    """Device milliseconds per request of the operations launched inside
+    the program span `name` (at any depth of nesting)."""
+    if run.trace is None or run.requests == 0:
+        return None
+    s = run.trace.device_seconds(program=name)
+    return s / run.requests * 1e3 if s > 0 else None
+
+
+def program_host_ms(run, keep: Callable[[str], bool],
+                    less: Sequence[str] = ()) -> Optional[float]:
+    """Host milliseconds per request inside the program spans whose names
+    `keep` takes, less the part inside spans named in `less`."""
+    if run.trace is None or run.requests == 0:
+        return None
+    s = run.trace.host_seconds(keep, less)
     return s / run.requests * 1e3 if s > 0 else None
 
 

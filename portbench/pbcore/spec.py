@@ -2,13 +2,37 @@
 
   configs/<config>.json     the deployment: source, cuts, assumed sizes and
                             the port's config dict (`program_config`)
-  traffic/<mix>.json        batch, in flight, query form, its driver's name
+  traffic/<mix>.json        batch, in flight, query form, its driver's name,
+                            its `stages` (absent: none)
   drivers/<driver>.py       builds the system and drives one request
+  stages/<stage>.py         a part of the timed path the built-in stages do
+                            not cover (a model the harness has not met):
+                              SPANS      the harness spans its driver opens
+                              build(system, config, traffic, seed, device)
+                                         in set-up, after the system and
+                                         before the driver: draws its
+                                         weights (data.generator(device,
+                                         seed, "weights.<stage>")) and puts
+                                         what it builds in
+                                         system.stages[<stage>]
+                              work(config, traffic) -> {stage: [Item]}
+                                         its counted work of one request
+                                         (work/counts.py), for mfu and
+                                         readers.roofline
+                              judge(world, batch, out) -> {number: value}
+                                         after the built-in numbers, the
+                                         port's state freed: the reference
+                                         of its outputs, its own weights
+                                         drawn again
+                              outputs(world, batch, prec) -> {key: output}
+                                         the reference in the port's place
+                                         at `prec` (the control)
   metrics/<metric>.py       reads one per-layer metric (`read(run)`)
-  limits/<cell>.json        the limit of each number `correct` compares
+  limits/<cell>.json        the limit of each number `correct` compares;
+                            a number without one stops the run
 
-A later cell, configuration, mix or metric is new files and entries; no
-file here names one.
+A later cell, configuration, mix, stage or metric is new files and
+entries; no file here names one.
 """
 
 from __future__ import annotations
@@ -66,6 +90,10 @@ class Cell:
     def driver(self) -> ModuleType:
         name = self.traffic["driver"]
         return load_module(ROOT / "drivers" / f"{name}.py", f"portbench_driver_{name}")
+
+    def stages(self) -> List[ModuleType]:
+        return [load_module(ROOT / "stages" / f"{name}.py", f"portbench_stage_{name}")
+                for name in self.traffic.get("stages", [])]
 
     def metric_readers(self) -> List:
         return [(m, load_module(ROOT / "metrics" / f"{m['name']}.py",

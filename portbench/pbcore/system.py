@@ -16,6 +16,10 @@ reads:
   reranker       `DeviceReranker` over the cross-encoder with its token table
                  of the corpus texts (cells whose traffic reranks)
 
+The corpus stays within reach of the driver and the stages: `texts` and
+`words` are the corpus's own lists (no copy). A stage's `build` puts what
+it builds in `stages[<stage>]`.
+
 `search(texts, vectors, qdev, fetch)` passes what the app's
 `_dispatch_fused` passes: top_k for every leg, rrf_k, the store's search
 mode for the precision, the rescore multiplier and the fusion weighting.
@@ -54,6 +58,8 @@ class System:
 
         self.cfg = cfg = config_from_dict(config["program_config"])
         self.traffic = traffic
+        self.texts, self.words = corpus.texts, corpus.words
+        self.stages: Dict[str, object] = {}
         n = corpus.vecs.shape[0]
         ix = cfg.index
         eng = DeviceVectorIndex(ix.dim, initial_capacity=ix.initial_capacity,

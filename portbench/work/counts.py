@@ -12,6 +12,7 @@ The same counts hold whatever kernel does the work:
             pooler and classifier 2 (h^2 + h)
   rescore   the dense candidates' gather (kc D x 4 bytes, or kc D int8
             codes) and 2 kc D float32 FLOPs per query
+  stages    each of the traffic's stages counts its own (its `work`)
   not counted: the BM25 exact rescore, the fusion, the rerank blend, host
             work (PERF.md lists them)
 
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 PEAKS = json.loads((Path(__file__).resolve().parent / "peaks.json").read_text())
 
@@ -64,9 +65,10 @@ def plan(config: Dict, traffic: Dict) -> Dict:
             "store_fp32": bool(pc["index"]["store_fp32"])}
 
 
-def per_request(config: Dict, traffic: Dict) -> Dict[str, List[Item]]:
+def per_request(config: Dict, traffic: Dict, stages: Sequence = ()) -> Dict[str, List[Item]]:
     """Work items of one request, grouped by the stage that does them
-    ("scan_int8", "scan_binary", "encoder", "cross_encoder", "rescore")."""
+    ("scan_int8", "scan_binary", "encoder", "cross_encoder", "rescore"),
+    with each of `stages`' own (the modules of the traffic's stages)."""
     cfg, p = config, plan(config, traffic)
     b = int(traffic["batch_size"])
     n = int(cfg["num_passages"])
@@ -97,4 +99,7 @@ def per_request(config: Dict, traffic: Dict) -> Dict[str, List[Item]]:
         pairs = b * int(traffic["top_k"])
         flops = encoder_flops(cfg, [q + dl + 3] * pairs) + pairs * 2.0 * (h * h + h)
         out["cross_encoder"].append(("cross-encoder", flops, 0.0, "bf16_flops_per_s"))
+    for st in stages:
+        for name, items in st.work(config, traffic).items():
+            out.setdefault(name, []).extend(items)
     return out
